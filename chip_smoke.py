@@ -1,0 +1,336 @@
+"""Chip smoke test of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU.
+
+Builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc/``, holds each
+against its plain PyTorch version on the card, then serves the full-width
+TransformerLM (vocab 32768, dim 768, 12 layers, 12 heads, T up to 1024;
+random weights from a seed) through ``serving.ModelServer`` and checks that
+the served path went through the kernels and agrees with the same model on
+the CPU.
+
+    python3 chip_smoke.py
+
+Needs a CUDA device and the CUDA toolkit (``nvcc``); imports no JAX and
+nothing of the JAX package.  Prints one line per phase, then a JSON line of
+per-kernel numbers, the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
+that line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+# full width of the bench configuration (bench.py _measure_transformer)
+VOCAB, DIM, HEADS, DEPTH, MAX_LEN = 32768, 768, 12, 12, 1024
+SERVE_LENGTHS = (128, 1024)
+LADDER = (1, 2, 4, 8)
+FP32_BOUND = 2e-5     # tests/test_pallas.py's bound for the kernel in fp32
+BF16_BOUND = 1e-2     # bf16 output rounding (8-bit mantissa) on O(1) values
+SERVE_ATOL = SERVE_RTOL = 1e-3   # card vs CPU logits: fp32 sums reordered
+ARGMAX_AGREE = 0.99
+
+# published peaks by card (NVIDIA data sheets, dense): fp32 on CUDA cores
+# in FLOP/s and memory bandwidth in bytes/s
+PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
+         "H100": (67e12, 3.35e12)}
+
+
+def phase(label, **fields):
+    print("[%s] %s" % (label, " ".join("%s=%s" % kv for kv in fields.items())),
+          flush=True)
+
+
+def fail(msg):
+    print("FAIL: %s" % msg, flush=True)
+    sys.exit(1)
+
+
+def card_peaks(name):
+    for key, peaks in PEAKS.items():
+        if key in name:
+            return peaks
+    fail("no published peaks for card %r" % name)
+
+
+def time_ms(fn, reps=20):
+    """Median of ``reps`` CUDA-event timings of ``fn`` after two warm runs."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def check_kernel(cuda_ops, dev):
+    """Phase 2: the kernel against its plain version on the card."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    # (B, H, T, Tk, D, causal): tests/test_pallas.py shapes and ragged set,
+    # decode, every head dim, and the shapes the served path gives it
+    cases = [(2, 2, 256, 256, 64, False), (2, 2, 256, 256, 64, True)]
+    for c in (False, True):
+        for T, Tk in ((200, 200), (130, 130), (100, 100), (160, 224)):
+            cases.append((1, 2, T, Tk, 32,
+                          "bottom" if c and T != Tk else c))
+    cases += [(1, 2, 96, 224, 32, "top"), (1, 2, 96, 224, 32, "bottom"),
+              (1, 12, 1, 1024, 64, "bottom")]
+    cases += [(1, 2, 100, 100, d, True) for d in (16, 32, 64, 128)]
+    worst = 0.0
+    for B, H, T, Tk, D, causal in cases:
+        q, k, v = randn(B, H, T, D), randn(B, H, Tk, D), randn(B, H, Tk, D)
+        out = cuda_ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref = cuda_ops._attention_reference(q, k, v, causal, D ** -0.5)
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        if not err < FP32_BOUND:
+            fail("kernel fp32 %s err %.3g >= %g" % ((B, H, T, Tk, D, causal),
+                                                     err, FP32_BOUND))
+    phase("kernel_fp32", cases=len(cases), max_abs_err=worst,
+          bound=FP32_BOUND)
+
+    # the served path's layout: q/k/v are strided head views of one
+    # (B, T, 3C) projection, at every (rung, length) the server runs
+    serve_err = 0.0
+    for B in LADDER:
+        for T in SERVE_LENGTHS:
+            qkv = randn(B, T, 3 * DIM)
+            q, k, v = (t.view(B, T, HEADS, DIM // HEADS).transpose(1, 2)
+                       for t in qkv.split(DIM, dim=-1))
+            out = cuda_ops.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            ref = cuda_ops._attention_reference(q, k, v, True,
+                                                (DIM // HEADS) ** -0.5)
+            serve_err = max(serve_err, (out - ref).abs().max().item())
+    if not serve_err < FP32_BOUND:
+        fail("kernel at served shapes err %.3g >= %g" % (serve_err,
+                                                         FP32_BOUND))
+    phase("kernel_served_shapes", max_abs_err=serve_err, bound=FP32_BOUND)
+
+    B, H, T, D = 8, HEADS, MAX_LEN, DIM // HEADS
+    qb, kb, vb = (randn(B, H, T, D).to(torch.bfloat16) for _ in range(3))
+    out = cuda_ops.flash_attention(qb, kb, vb, causal=True)
+    torch.cuda.synchronize()
+    if out.dtype != torch.bfloat16:
+        fail("bf16 kernel returned %s" % out.dtype)
+    ref = cuda_ops._attention_reference(qb.float(), kb.float(), vb.float(),
+                                        True, D ** -0.5)
+    bf16_err = (out.float() - ref).abs().max().item()
+    if not bf16_err < BF16_BOUND:
+        fail("kernel bf16 err %.3g >= %g" % (bf16_err, BF16_BOUND))
+    phase("kernel_bf16", shape=(B, H, T, D), max_abs_err=bf16_err,
+          bound=BF16_BOUND)
+
+    # time at the full served shape, fp32 causal
+    q, k, v = (randn(B, H, T, D) for _ in range(3))
+    ms = time_ms(lambda: cuda_ops.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: cuda_ops._attention_reference(
+        q, k, v, True, D ** -0.5))
+    library_ms = time_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(q, k, v, is_causal=True))
+    flops_peak, bytes_peak = card_peaks(torch.cuda.get_device_name(0))
+    pairs = B * H * T * (T + 1) // 2            # visible (query, key) pairs
+    ops_ms = 4 * D * pairs / flops_peak * 1e3   # q.k and p.v, fp32
+    bytes_ms = 4 * B * H * T * D * 4 / bytes_peak * 1e3   # q, k, v, o once
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    phase("kernel_time", shape=(B, H, T, D), ms=ms, plain_ms=plain_ms,
+          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return {"max_abs_err": max(worst, serve_err), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def serve(cuda_ops, dev, card):
+    """Phase 3: the full-width LM served through ModelServer on the card."""
+    from mxnet_tpu_torch import initializer, serving
+    from mxnet_tpu_torch.models import TransformerLM
+
+    t0 = time.time()
+    net = TransformerLM(VOCAB, dim=DIM, heads=HEADS, depth=DEPTH,
+                        max_len=MAX_LEN, device=dev)
+    initializer.initialize(net, initializer.Xavier(),
+                           generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in net.parameters())
+    phase("model", params=n_params, build_s=round(time.time() - t0, 2))
+
+    rng = np.random.RandomState(0)
+    requests = []   # (tokens, positions): 12 short and 6 long, interleaved
+    for i in range(18):
+        T = SERVE_LENGTHS[1] if i % 3 == 2 else SERVE_LENGTHS[0]
+        requests.append((rng.randint(0, VOCAB, T).astype(np.int32),
+                         np.arange(T, dtype=np.int32)))
+
+    server = serving.ModelServer()
+    cuda_ops.flash_attention.launches = 0
+    try:
+        t0 = time.time()
+        model = server.load_model(
+            "lm", net, input_shapes=[((T,), (T,)) for T in SERVE_LENGTHS],
+            dtype=("int32", "int32"), batch_ladder=list(LADDER),
+            linger_ms=20.0, max_queue=64, device=dev)
+        warm = model.warmup_report
+        phase("warmup", signatures=warm["signatures"],
+              seconds=round(time.time() - t0, 2))
+        results = [None] * len(requests)
+
+        def client(worker):
+            for i in range(worker, len(requests), 4):
+                results[i] = server.predict("lm", requests[i],
+                                            timeout_ms=120000)
+
+        threads = [threading.Thread(target=client, args=(w,))
+                   for w in range(4)]
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.time() - t0
+        snap = server.stats()["models"]["lm"]
+    finally:
+        server.stop()
+    launches = cuda_ops.flash_attention.launches
+    if any(t.is_alive() for t in threads):
+        fail("client threads did not finish")
+    statuses = [r.status for r in results]
+    if statuses.count(serving.OK) != len(requests):
+        fail("not every request OK: %s" % [(r.status, r.error)
+                                          for r in results])
+    for (tok, _), r in zip(requests, results):
+        if r.output.shape != (len(tok), VOCAB) or \
+                not np.isfinite(r.output).all():
+            fail("bad logits %s for T=%d" % (r.output.shape, len(tok)))
+    batches = warm["signatures"] + snap["batches"]
+    if launches != DEPTH * batches:
+        fail("flash_attention launches %d != %d layers x %d batches"
+             % (launches, DEPTH, batches))
+    lat = sorted(r.latency_ms for r in results)
+    tokens = sum(len(tok) for tok, _ in requests)
+    phase("serve", requests=len(requests), ok=statuses.count(serving.OK),
+          batches=snap["batches"], avg_batch=snap["avg_batch"],
+          launches=launches, p50_ms=float(np.percentile(lat, 50)),
+          p99_ms=float(np.percentile(lat, 99)), tokens=tokens,
+          tokens_per_s=tokens / wall, card='"%s"' % card)
+
+    profile_batch(net, dev)
+
+    # the same weights on the CPU, where the plain attention runs
+    cpu_net = TransformerLM(VOCAB, dim=DIM, heads=HEADS, depth=DEPTH,
+                            max_len=MAX_LEN, device="cpu")
+    cpu_net.load_state_dict(net.state_dict())
+    del net
+    worst, agree = 0.0, 1.0
+    for i in (0, 2):   # one short and one long request
+        tok, pos = requests[i]
+        with torch.inference_mode():
+            ref = cpu_net(torch.from_numpy(tok)[None],
+                          torch.from_numpy(pos)[None])[0].numpy()
+        got = results[i].output
+        worst = max(worst, float(np.abs(got - ref).max()))
+        if not np.allclose(got, ref, atol=SERVE_ATOL, rtol=SERVE_RTOL):
+            fail("served logits of request %d differ from the CPU: max "
+                 "abs err %.3g" % (i, float(np.abs(got - ref).max())))
+        agree = min(agree, float((got.argmax(-1) == ref.argmax(-1)).mean()))
+    if agree < ARGMAX_AGREE:
+        fail("argmax agreement %.4f < %.2f" % (agree, ARGMAX_AGREE))
+    phase("serve_vs_cpu", max_abs_err=worst, atol=SERVE_ATOL,
+          rtol=SERVE_RTOL, argmax_agree=agree)
+    return launches
+
+
+def profile_batch(net, dev, B=4):
+    """Where one long served batch's time goes: its forward on the card
+    against the host copy of its logits (host clock, each ended by a
+    synchronize), and the device time by kernel (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    T = MAX_LEN
+    g = torch.Generator(device=dev).manual_seed(1)
+    idx = torch.randint(0, VOCAB, (B, T), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos = torch.arange(T, device=dev, dtype=torch.int32).expand(B, T)
+    with torch.inference_mode():
+        net(idx, pos).cpu()   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = net(idx, pos)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits.cpu()
+        t2 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            net(idx, pos).cpu()
+    # device-side events only (kernels and copies): the host-side ops
+    # carry the same device time again
+    events = [e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    phase("profile", batch=(B, T), forward_ms=(t1 - t0) * 1e3,
+          to_host_ms=(t2 - t1) * 1e3, device_ms=device_ms,
+          top_device_ms=json.dumps([[e.key[:60],
+                                     e.self_device_time_total / 1e3]
+                                    for e in top]))
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke test runs on the GPU only")
+    from mxnet_tpu_torch import _kernels
+    from mxnet_tpu_torch.ops import cuda_ops
+
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase("device", name='"%s"' % name, count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    print(smi, flush=True)
+
+    t0 = time.time()
+    _kernels.load()
+    phase("build", source="mxnet_tpu_torch/csrc/flash_attention.cu",
+          seconds=round(time.time() - t0, 2))
+
+    numbers = check_kernel(cuda_ops, dev)
+    launches = serve(cuda_ops, dev, smi)
+
+    kernel = {"name": "flash_attention", "route": "cuda",
+              "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+              "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
+              "launches": launches}
+    kernel.update(numbers)
+    print(json.dumps({"kernels": [kernel]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,16 @@
+"""mxnet_tpu_torch: the PyTorch/CUDA port of ``mxnet_tpu``.
+
+The JAX package ``mxnet_tpu`` is the reference; this package answers to it
+module for module and runs on an NVIDIA H100.  It imports ``torch`` and never
+``jax``, and nothing of ``mxnet_tpu``.  Entry points run on the card
+(``cuda:0``) unless the caller passes ``device="cpu"``; with no CUDA device
+and no explicit device they raise :class:`MXNetError`.
+
+Ported so far: the flash-attention TransformerLM served through
+``serving.ModelServer``, with attention in a hand-written CUDA kernel
+(``ops/cuda_ops.py``, ``csrc/flash_attention.cu``).
+"""
+from .base import MXNetError
+from .context import cpu, current_context, gpu, tpu
+
+__all__ = ["MXNetError", "cpu", "gpu", "tpu", "current_context"]
