@@ -18,10 +18,13 @@ that line.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
 import time
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -36,9 +39,11 @@ SERVE_ATOL = SERVE_RTOL = 1e-3   # card vs CPU logits: fp32 sums reordered
 ARGMAX_AGREE = 0.99
 
 # published peaks by card (NVIDIA data sheets, dense): fp32 on CUDA cores
-# in FLOP/s and memory bandwidth in bytes/s
-PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
-         "H100": (67e12, 3.35e12)}
+# and TF32 on tensor cores in FLOP/s, memory bandwidth in bytes/s
+PEAKS = {"H100 PCIe": (51.2e12, 378e12, 2.0e12),
+         "H100 NVL": (60e12, 417.5e12, 3.9e12),
+         "H100": (67e12, 495e12, 3.35e12)}
+TIMED_CALLS = 10   # back-to-back calls between one pair of CUDA events
 
 
 def phase(label, **fields):
@@ -58,8 +63,12 @@ def card_peaks(name):
     fail("no published peaks for card %r" % name)
 
 
-def time_ms(fn, reps=20):
-    """Median of ``reps`` CUDA-event timings of ``fn`` after two warm runs."""
+def time_ms(fn, reps=20, calls=TIMED_CALLS):
+    """Median over ``reps`` of the CUDA-event time of ``calls`` back-to-back
+    calls of ``fn``, divided by ``calls``, after two warm calls.  The calls
+    queue behind each other, so the host's time per call (the ctypes
+    wrapper's tens of microseconds) does not leave the card idle inside the
+    window as it would around a single call."""
     for _ in range(2):
         fn()
     times = []
@@ -67,11 +76,78 @@ def time_ms(fn, reps=20):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def build_report(_kernels):
+    """Phase 1: build the kernel, print ptxas's registers, spills and the
+    shared memory of each instance, and count the tensor-core (HMMA)
+    instructions in the library's SASS; fails if there are none."""
+    t0 = time.time()
+    lib = _kernels.load()
+    seconds = round(time.time() - t0, 2)
+    instances, name = {}, None
+    for line in _kernels.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            instances[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            instances[name].update(stack=int(m.group(1)),
+                                   spill_stores=int(m.group(2)),
+                                   spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            instances[name]["registers"] = int(m.group(1))
+    if not instances:
+        fail("no ptxas report in the build log")
+    cuobjdump = str(Path(_kernels._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(_kernels.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    hmma, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+        elif "HMMA" in line and func is not None:
+            hmma[func] = hmma.get(func, 0) + 1
+    phase("build", source="mxnet_tpu_torch/csrc/flash_attention.cu",
+          seconds=seconds, instances=len(instances),
+          hmma=sum(hmma.values()))
+    for mangled, info in sorted(instances.items()):
+        D = re.search(r"Li(\d+)E", mangled)   # the head dim comes first
+        phase("instance", kernel=demangle(mangled),
+              registers=info.get("registers"),
+              spill_stores=info.get("spill_stores"),
+              spill_loads=info.get("spill_loads"),
+              smem_bytes=(lib.mxt_flash_attention_smem_bytes(int(D.group(1)))
+                          if D else None),
+              hmma=hmma.get(mangled, 0))
+    if not sum(hmma.values()):
+        fail("no HMMA instruction in the kernel's SASS: the tensor cores "
+             "do not run")
+    return seconds
+
+
+def demangle(mangled):
+    """flash_attention_fwd_kernel<float, 64, ...> from its mangled name."""
+    m = re.search(r"(flash_attention_fwd_kernel)I(.*?)EEv", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|^(f)", m.group(2))
+    names = ["bf16" if bf else "float" if f else num
+             for num, bf, f in args]
+    return "%s<%s>" % (m.group(1), ",".join(names))
 
 
 def check_kernel(cuda_ops, dev):
@@ -91,17 +167,26 @@ def check_kernel(cuda_ops, dev):
     cases += [(1, 2, 96, 224, 32, "top"), (1, 2, 96, 224, 32, "bottom"),
               (1, 12, 1, 1024, 64, "bottom")]
     cases += [(1, 2, 100, 100, d, True) for d in (16, 32, 64, 128)]
+    # the register-heaviest instance at full length
+    cases.append((1, 4, 1024, 1024, 128, True))
+    # inputs whose base is 4 but not 16 bytes aligned and whose rows are
+    # D + 1 floats apart: the kernel stages them by its 4-byte path
+    cases += [(2, 2, 256, 256, 64, c, "unaligned") for c in (False, True)]
     worst = 0.0
-    for B, H, T, Tk, D, causal in cases:
-        q, k, v = randn(B, H, T, D), randn(B, H, Tk, D), randn(B, H, Tk, D)
+    for B, H, T, Tk, D, causal, *layout in cases:
+        if layout:
+            q, k, v = (randn(B, H, n, D + 1)[..., 1:] for n in (T, Tk, Tk))
+        else:
+            q, k, v = (randn(B, H, T, D), randn(B, H, Tk, D),
+                       randn(B, H, Tk, D))
         out = cuda_ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref = cuda_ops._attention_reference(q, k, v, causal, D ** -0.5)
         err = (out - ref).abs().max().item()
         worst = max(worst, err)
         if not err < FP32_BOUND:
-            fail("kernel fp32 %s err %.3g >= %g" % ((B, H, T, Tk, D, causal),
-                                                     err, FP32_BOUND))
+            fail("kernel fp32 %s err %.3g >= %g"
+                 % ((B, H, T, Tk, D, causal, *layout), err, FP32_BOUND))
     phase("kernel_fp32", cases=len(cases), max_abs_err=worst,
           bound=FP32_BOUND)
 
@@ -144,17 +229,28 @@ def check_kernel(cuda_ops, dev):
         q, k, v, True, D ** -0.5))
     library_ms = time_ms(lambda: torch.nn.functional.
                          scaled_dot_product_attention(q, k, v, is_causal=True))
-    flops_peak, bytes_peak = card_peaks(torch.cuda.get_device_name(0))
+    fp32_peak, tf32_peak, bytes_peak = card_peaks(
+        torch.cuda.get_device_name(0))
     pairs = B * H * T * (T + 1) // 2            # visible (query, key) pairs
-    ops_ms = 4 * D * pairs / flops_peak * 1e3   # q.k and p.v, fp32
+    flops = 4 * D * pairs                       # q.k and p.v
+    cuda_core_ms = flops / fp32_peak * 1e3
+    tensor_core_ms = 3 * flops / tf32_peak * 1e3   # three TF32 passes
     bytes_ms = 4 * B * H * T * D * 4 / bytes_peak * 1e3   # q, k, v, o once
+    # the least time at fp32 accuracy: the faster of the two routes for the
+    # operations, or the bytes if they take longer
+    ops_ms = min(cuda_core_ms, tensor_core_ms)
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    phase("kernel_time", shape=(B, H, T, D), ms=ms, plain_ms=plain_ms,
-          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    phase("kernel_time", shape=(B, H, T, D), calls_per_timing=TIMED_CALLS,
+          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+          bound_cuda_core_ms=cuda_core_ms,
+          bound_tensor_core_ms=tensor_core_ms, bytes_ms=bytes_ms,
+          bound_ms=bound_ms, bound_by=bound_by)
     return {"max_abs_err": max(worst, serve_err), "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_cuda_core_ms": cuda_core_ms,
+            "bound_tensor_core_ms": tensor_core_ms, "bytes_ms": bytes_ms}
 
 
 def serve(cuda_ops, dev, card):
@@ -312,10 +408,7 @@ def main():
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     print(smi, flush=True)
 
-    t0 = time.time()
-    _kernels.load()
-    phase("build", source="mxnet_tpu_torch/csrc/flash_attention.cu",
-          seconds=round(time.time() - t0, 2))
+    build_report(_kernels)
 
     numbers = check_kernel(cuda_ops, dev)
     launches = serve(cuda_ops, dev, smi)

@@ -5,7 +5,10 @@ library with a plain C interface, loaded with ``ctypes``.  The library goes
 to ``build/mxnet_tpu_torch/`` at the root of the checkout, named by a hash
 of the source and the flags, so an edited source rebuilds and an unchanged
 one is reused.  A missing ``nvcc`` or a failed build raises with the
-compiler's output; nothing falls back to another implementation.
+compiler's output; nothing falls back to another implementation.  The
+compiler's output of a build that succeeds (``ptxas -v``: registers, spill
+bytes and static shared memory per kernel instance) is kept beside the
+library and read back by :func:`build_log`.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -20,14 +23,14 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["load"]
+__all__ = ["load", "build_log", "library_path"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
               / "mxnet_tpu_torch")
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -52,7 +55,8 @@ def _nvcc():
                      % ", ".join(str(p) for p in candidates))
 
 
-def _library_path():
+def library_path():
+    """Where the library for the current source and flags lives."""
     digest = hashlib.sha256(_SOURCE.read_bytes()
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()
     return _BUILD_DIR / ("libflash_attention-%s.so" % digest[:16])
@@ -69,7 +73,19 @@ def _build(out):
         raise MXNetError("building the flash-attention kernel failed "
                          "(exit %d):\n%s\n%s"
                          % (proc.returncode, " ".join(cmd), proc.stdout))
+    _log_path(out).write_text(proc.stdout)
     os.replace(tmp, out)
+    return proc.stdout
+
+
+def _log_path(lib):
+    return lib.with_suffix(".log")
+
+
+def build_log():
+    """What ``nvcc`` printed when it built the loaded library."""
+    load()
+    return _log_path(library_path()).read_text()
 
 
 def load():
@@ -79,11 +95,13 @@ def load():
         return _lib
     with _lock:
         if _lib is None:
-            path = _library_path()
+            path = library_path()
             if not path.exists():
                 _build(path)
             lib = ctypes.CDLL(str(path))
             lib.mxt_flash_attention_fwd.argtypes = _ARGTYPES
             lib.mxt_flash_attention_fwd.restype = ctypes.c_int
+            lib.mxt_flash_attention_smem_bytes.argtypes = [_I]
+            lib.mxt_flash_attention_smem_bytes.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,187 +1,379 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores, at fp32
+// accuracy; plain C interface for ctypes.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_ops.py::_flash_attention_pallas
 // (:54, pl.pallas_call at :139).  Same function: softmax(scale * q k^T) v per
-// (batch, head), optional causal mask whose diagonal is shifted by
-// `causal_offset` (0 for True/'top', Tk - Tq for 'bottom'), masked scores
-// set to -1e30, online softmax with an fp32 running max / sum / accumulator,
-// output in q's dtype.
+// (batch, head), q pre-scaled as pallas_ops.py:86 does, optional causal mask
+// whose diagonal is shifted by `causal_offset` (0 for True/'top', Tk - Tq for
+// 'bottom'), masked scores set to -1e30, online softmax with an fp32 running
+// max / sum / accumulator, output in q's dtype.
 //
-// Bound on an H100 at the serving shape (B, H, T, D) = (8, 12, 1024, 64),
-// causal, fp32: 4*D flops per visible (query, key) pair = 12.9 GFLOP, which
-// at the card's 67 TFLOP/s fp32 (CUDA cores) is ~0.19 ms, against 100.7 MB
-// of q/k/v/o traffic (~30 us at 3.35 TB/s).  So it is bound by operations.
+// Bounds on an H100 SXM at the serving shape (B, H, T, D) = (8, 12, 1024,
+// 64), causal, fp32: 4*D flops per visible (query, key) pair = 12.9 GFLOP.
+//   * on the CUDA cores (67 TFLOP/s fp32):                        0.192 ms
+//   * as three TF32 tensor-core passes (3 x 12.9 GFLOP / 495 TFLOP/s):
+//                                                                 0.078 ms
+//   * bytes, q/k/v read and o written once (100.7 MB / 3.35 TB/s): 0.030 ms
+// This kernel takes the tensor-core route, so 0.078 ms is its bound.
 //
-// Design (a simple, correct first kernel; wgmma/TMA/warp specialisation are
-// later work):
-//   * one thread block per (b*h, tile of BQ = 64 query rows);
-//   * each query row is owned by G = D/32 threads (1 for D <= 32); each
-//     thread keeps its DPT = D/G dims of the pre-scaled q row and of the fp32
-//     accumulator in registers, with the row's running max m and sum l;
-//   * K/V tiles of BK = 32 keys are staged through shared memory as fp32
-//     (bf16 is widened with __bfloat162float on the way in);
-//   * a thread's dims are interleaved float4 chunks (chunk g, g+G, ...), so
-//     the G threads of a row read neighbouring 16-byte words of a K/V row:
-//     broadcast shared-memory reads without bank conflicts;
-//   * partial q.k dots are summed across the G threads with __shfl_xor_sync;
-//   * the causal key loop stops at the last key any row of the tile sees;
-//     ragged T / Tk are masked here (k_pos < n_keys, q_pos < T), so the
-//     wrapper pads nothing;
-//   * q/k/v are read through their (B, H, T) strides with D contiguous, so
-//     the model's head transpose needs no copy; o is contiguous (B, H, T, D).
+// Products: mma.sync.m16n8k8 tf32 with fp32 accumulation, three passes.
+// Each fp32 operand x is split into big = rna_tf32(x) and
+// small = rna_tf32(x - big); a product sums big*big + big*small + small*big
+// (small*small, ~2^-22 relative, is dropped).  One TF32 pass alone errs by
+// ~1e-3, far beyond the 2e-5 the kernel is held to.
+//
+// Layout: a block is 4 warps and owns BQ = 64 query rows of one (b, h); each
+// warp owns 16 rows (one m16 tile).  K/V tiles of BK = 64 keys are staged in
+// shared memory as fp32 (bf16 widened on the way in) with a row stride of
+// D + 4 floats.
+//
+// Fragments of m16n8k8 tf32, g = lane / 4, t = lane % 4:
+//   A: a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4), a3 = (g+8, t+4)
+//   B: b0 = (k = t, n = g), b1 = (k = t+4, n = g)
+//   C: c0 = (g, 2t), c1 = (g, 2t+1), c2 = (g+8, 2t), c3 = (g+8, 2t+1)
+// S = Q K^T for the 8 keys j0..j0+7 leaves a thread P[g][j0+2t],
+// P[g][j0+2t+1], P[g+8][j0+2t], P[g+8][j0+2t+1].  P V takes those 8 keys as
+// one k8 step with its keys permuted, k-index t -> key j0+2t and k-index
+// t+4 -> key j0+2t+1, so that P's A fragment is the accumulator as it lies:
+//   a0 = c0, a1 = c2, a2 = c1, a3 = c3,
+//   b0 = V[j0+2t][d0+g], b1 = V[j0+2t+1][d0+g].
+// A sum over keys does not depend on their order.  The softmax's row max and
+// row sum reduce over the 4 threads of a quad (__shfl_xor_sync 1, 2).
+//
+// Shared-memory banks with the D + 4 stride (D + 4 = 4 mod 32 for D = 32,
+// 64, 128; 20 mod 32 for D = 16): K's B loads hit bank (4g + t) mod 32
+// (D = 16: (20g + t) mod 32), V's permuted loads (8t + g) mod 32 for every D,
+// Q's A loads (4g + t) mod 32: 32 distinct banks for each warp-wide load.
+//
+// Q (pre-scaled) is split once per block and kept as fragments in registers
+// for D <= 64; for D = 128 it stays in shared memory and is split as it is
+// read, since its fragments, the accumulator and the scores would not fit
+// in 255 registers.  K/V fragments are split as they are read.
+//
+// Ragged T / Tk are masked here (key < Tk, query < T), so the wrapper pads
+// nothing; tiles wholly inside the visible region skip the mask.  The causal
+// key loop stops at the last key any row of the block sees, and the longest
+// causal q tiles launch first.  q/k/v are read through their (B, H, T)
+// strides with D contiguous; o is contiguous (B, H, T, D).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 32;  // keys per shared-memory tile
-constexpr float kMasked = -1e30f;  // the TPU kernel's mask value
+constexpr int BQ = 64;                // query rows per block
+constexpr int BK = 64;                // keys per shared-memory tile
+constexpr int kThreads = 128;         // 4 warps x 16 rows
+constexpr float kMasked = -1e30f;     // the TPU kernel's mask value
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// c += a * b, m16n8k8, tf32 inputs, fp32 accumulate
+__device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                    const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b at fp32 accuracy from (big, small) halves of a and b
+__device__ __forceinline__ void mma3(float* c, const uint32_t* ab,
+                                     const uint32_t* as, const uint32_t* bb,
+                                     const uint32_t* bs) {
+  mma(c, as, bb);
+  mma(c, ab, bs);
+  mma(c, ab, bb);
+}
+
+// Stage keys k0..k0+BK-1 of K and V into shared memory as fp32, rows past
+// Tk as zeros.  `vec`: base pointers and row strides allow 16-byte loads.
+template <typename T, int D>
+__device__ __forceinline__ void stage_tile(float* ks, float* vs, const T* kb,
+                                           const T* vb, long long skt,
+                                           long long svt, int k0, int Tk,
+                                           bool vec) {
+  constexpr int LD = D + 4;
+  if constexpr (sizeof(T) == 4) {
+    if (vec) {
+      constexpr int CPR = D / 4;  // 16-byte chunks per row
+      for (int c = threadIdx.x; c < BK * CPR; c += kThreads) {
+        const int r = c / CPR, col = (c % CPR) * 4;
+        const int kp = k0 + r;
+        float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+        if (kp < Tk) {
+          kx = *reinterpret_cast<const float4*>(kb + kp * skt + col);
+          vx = *reinterpret_cast<const float4*>(vb + kp * svt + col);
+        }
+        *reinterpret_cast<float4*>(ks + r * LD + col) = kx;
+        *reinterpret_cast<float4*>(vs + r * LD + col) = vx;
+      }
+      return;
+    }
+  }
+  for (int e = threadIdx.x; e < BK * D; e += kThreads) {
+    const int r = e / D, col = e % D;
+    const int kp = k0 + r;
+    float kx = 0.f, vx = 0.f;
+    if (kp < Tk) {
+      kx = to_float(kb[kp * skt + col]);
+      vx = to_float(vb[kp * svt + col]);
+    }
+    ks[r * LD + col] = kx;
+    vs[r * LD + col] = vx;
+  }
+}
+
+template <int D>
+constexpr int smem_bytes() {
+  return (BQ + 2 * BK) * (D + 4) * 4;  // Q, then one K and one V tile
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BQ * (D > 32 ? D / 32 : 1))
+__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int H,
                            int Tq, int Tk, long long sqb, long long sqh,
                            long long sqt, long long skb, long long skh,
                            long long skt, long long svb, long long svh,
                            long long svt, int causal, int causal_offset,
-                           float scale) {
-  constexpr int DPT = D < 32 ? D : 32;  // dims per thread
-  constexpr int G = D / DPT;            // threads per query row
-  constexpr int NC = DPT / 4;           // float4 chunks per thread
-  constexpr int NT = BQ * G;            // threads per block
-  __shared__ __align__(16) float ks[BK * D];
-  __shared__ __align__(16) float vs[BK * D];
+                           float scale, bool vec) {
+  constexpr int LD = D + 4;
+  constexpr int KD = D / 8;      // k8 steps over D in S; n8 tiles of O
+  constexpr int NJ = BK / 8;     // 8-key steps per tile
+  constexpr bool kQInRegs = D <= 64;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;              // BQ x LD, pre-scaled q
+  float* ks = qs + BQ * LD;      // BK x LD
+  float* vs = ks + BK * LD;      // BK x LD
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int row = tid / G, g = tid % G;
-  const int q_pos = q0 + row;
-  const bool live = q_pos < Tq;
+  // longest causal q tiles first: the tail of the grid is short tiles
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = warp * 16;             // the warp's first row in the tile
+  const int row0 = q0 + wr + g;         // this thread's rows: row0, row0 + 8
 
   const T* qb = q + b * sqb + h * sqh;
   const T* kb = k + b * skb + h * skh;
   const T* vb = v + b * svb + h * svh;
 
-  float qr[DPT], acc[DPT];
+  for (int e = threadIdx.x; e < BQ * D; e += kThreads) {
+    const int r = e / D, col = e % D;
+    const int qp = q0 + r;
+    qs[r * LD + col] = qp < Tq ? to_float(qb[qp * sqt + col]) * scale : 0.f;
+  }
+  __syncthreads();
+
+  // Q's A fragments, (big, small), for D <= 64
+  uint32_t qf[kQInRegs ? KD : 1][2][4];
+  if constexpr (kQInRegs) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (g + G * c) + e;
-      qr[4 * c + e] = live ? to_float(qb[q_pos * sqt + d]) * scale : 0.f;
-      acc[4 * c + e] = 0.f;
+    for (int kk = 0; kk < KD; ++kk) {
+      const float* qr = qs + (wr + g) * LD + kk * 8 + t;
+      split(qr[0], qf[kk][0][0], qf[kk][1][0]);
+      split(qr[8 * LD], qf[kk][0][1], qf[kk][1][1]);
+      split(qr[4], qf[kk][0][2], qf[kk][1][2]);
+      split(qr[8 * LD + 4], qf[kk][0][3], qf[kk][1][3]);
     }
   }
-  float m = kMasked, l = 0.f;
 
-  // keys any row of this tile can see
+  // keys any row of this block can see
   int n_keys = Tk;
   if (causal) {
     const int last_q = min(Tq, q0 + BQ) - 1;
     n_keys = max(0, min(Tk, last_q + causal_offset + 1));
   }
+  // the last key the warp's first row sees: tiles up to it need no mask
+  const int warp_first_key_limit = q0 + wr + causal_offset;
+
+  float o_acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+    o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.f;
+  float m0 = kMasked, m1 = kMasked;  // running max of rows row0, row0 + 8
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
   for (int k0 = 0; k0 < n_keys; k0 += BK) {
     __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int j = i / D, d = i % D;
-      const int kp = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (kp < n_keys) {
-        kx = to_float(kb[kp * skt + d]);
-        vx = to_float(vb[kp * svt + d]);
-      }
-      ks[i] = kx;
-      vs[i] = vx;
-    }
+    stage_tile<T, D>(ks, vs, kb, vb, skt, svt, k0, Tk, vec);
     __syncthreads();
 
-    float s[BK];
-    float m_tile = kMasked;
+    // S = Q K^T for the tile's 64 keys
+    float s[NJ][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * D);
-      float part = 0.f;
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 kk = kr[g + G * c];
-        part = fmaf(qr[4 * c + 0], kk.x, part);
-        part = fmaf(qr[4 * c + 1], kk.y, part);
-        part = fmaf(qr[4 * c + 2], kk.z, part);
-        part = fmaf(qr[4 * c + 3], kk.w, part);
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ab[4], as[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ab[e] = qf[kk][0][e];
+          as[e] = qf[kk][1][e];
+        }
+      } else {
+        const float* qr = qs + (wr + g) * LD + kk * 8 + t;
+        split(qr[0], ab[0], as[0]);
+        split(qr[8 * LD], ab[1], as[1]);
+        split(qr[4], ab[2], as[2]);
+        split(qr[8 * LD + 4], ab[3], as[3]);
       }
 #pragma unroll
-      for (int w = G / 2; w > 0; w >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, w);
-      const int kp = k0 + j;
-      const bool keep =
-          kp < n_keys && (!causal || kp <= q_pos + causal_offset);
-      s[j] = keep ? part : kMasked;
-      m_tile = fmaxf(m_tile, s[j]);
+      for (int j = 0; j < NJ; ++j) {
+        const float* kr = ks + (j * 8 + g) * LD + kk * 8 + t;
+        uint32_t bb[2], bs[2];
+        split(kr[0], bb[0], bs[0]);
+        split(kr[4], bb[1], bs[1]);
+        mma3(s[j], ab, as, bb, bs);
+      }
     }
 
-    const float m_new = fmaxf(m, m_tile);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
+    const bool need_mask =
+        k0 + BK > Tk || (causal && k0 + BK - 1 > warp_first_key_limit);
+    if (need_mask) {
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
+      for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - m_new);
-      l += p;
-      const float4* vr = reinterpret_cast<const float4*>(vs + j * D);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 vv = vr[g + G * c];
-        acc[4 * c + 0] = fmaf(p, vv.x, acc[4 * c + 0]);
-        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + j * 8 + 2 * t + (e & 1);
+          const int qp = row0 + (e >> 1) * 8;
+          const bool keep =
+              kp < Tk && (!causal || kp <= qp + causal_offset);
+          if (!keep) s[j][e] = kMasked;
+        }
       }
     }
-    m = m_new;
+
+    // online softmax
+    float mt0 = kMasked, mt1 = kMasked;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      mt0 = fmaxf(mt0, fmaxf(s[j][0], s[j][1]));
+      mt1 = fmaxf(mt1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, w));
+      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, w));
+    }
+    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+    const float alpha0 = exp2f((m0 - mn0) * kLog2e);
+    const float alpha1 = exp2f((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      o_acc[n][0] *= alpha0;
+      o_acc[n][1] *= alpha0;
+      o_acc[n][2] *= alpha1;
+      o_acc[n][3] *= alpha1;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      s[j][0] = exp2f((s[j][0] - m0) * kLog2e);
+      s[j][1] = exp2f((s[j][1] - m0) * kLog2e);
+      s[j][2] = exp2f((s[j][2] - m1) * kLog2e);
+      s[j][3] = exp2f((s[j][3] - m1) * kLog2e);
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+
+    // O += P V, P straight from the accumulator (keys permuted in-step)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t pb[4], ps[4];
+      split(s[j][0], pb[0], ps[0]);
+      split(s[j][2], pb[1], ps[1]);
+      split(s[j][1], pb[2], ps[2]);
+      split(s[j][3], pb[3], ps[3]);
+      const float* vr = vs + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        uint32_t bb[2], bs[2];
+        split(vr[n * 8], bb[0], bs[0]);
+        split(vr[LD + n * 8], bb[1], bs[1]);
+        mma3(o_acc[n], pb, ps, bb, bs);
+      }
+    }
   }
 
-  if (live) {
-    const float inv_l = 1.f / l;
-    T* ob = o + ((long long)bh * Tq + q_pos) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
+  for (int w = 1; w <= 2; w <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  T* ob = o + (long long)bh * Tq * D;
+  if (row0 < Tq) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ob[4 * (g + G * c) + e] = from_float<T>(acc[4 * c + e] * inv_l);
-    }
+    for (int n = 0; n < KD; ++n)
+      store2(ob + (long long)row0 * D + n * 8 + 2 * t, o_acc[n][0] * inv0,
+             o_acc[n][1] * inv0);
+  }
+  if (row0 + 8 < Tq) {
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+      store2(ob + (long long)(row0 + 8) * D + n * 8 + 2 * t,
+             o_acc[n][2] * inv1, o_acc[n][3] * inv1);
   }
 }
 
+bool aligned16(const void* p, const long long* st) {
+  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int i = 0; i < 3; ++i)
+    if (st[i] % 4 != 0) return false;
+  return true;
+}
+
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o, int B,
-            int H, int Tq, int Tk, const long long* st, int causal,
-            int causal_offset, float scale, cudaStream_t stream) {
-  constexpr int G = D > 32 ? D / 32 : 1;
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int Tq, int Tk, const long long* st, int causal, int causal_offset,
+           float scale, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<D>();
+  auto kernel = flash_attention_fwd_kernel<T, D>;
+  if (kSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const bool vec = sizeof(T) == 4 && aligned16(k, st + 3) &&
+                   aligned16(v, st + 6);
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_attention_fwd_kernel<T, D><<<grid, BQ * G, 0, stream>>>(
+  kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, Tq, Tk, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, causal_offset,
-      scale);
+      scale, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -189,17 +381,16 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int H, int Tq, int Tk, int D, const long long* st, int causal,
              int causal_offset, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: launch<T, 16>(q, k, v, o, B, H, Tq, Tk, st, causal,
-                           causal_offset, scale, stream); break;
-    case 32: launch<T, 32>(q, k, v, o, B, H, Tq, Tk, st, causal,
-                           causal_offset, scale, stream); break;
-    case 64: launch<T, 64>(q, k, v, o, B, H, Tq, Tk, st, causal,
-                           causal_offset, scale, stream); break;
-    case 128: launch<T, 128>(q, k, v, o, B, H, Tq, Tk, st, causal,
-                             causal_offset, scale, stream); break;
+    case 16: return launch<T, 16>(q, k, v, o, B, H, Tq, Tk, st, causal,
+                                  causal_offset, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, H, Tq, Tk, st, causal,
+                                  causal_offset, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, H, Tq, Tk, st, causal,
+                                  causal_offset, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, H, Tq, Tk, st, causal,
+                                    causal_offset, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -221,4 +412,16 @@ extern "C" int mxt_flash_attention_fwd(
     return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Tq, Tk, D, st, causal,
                                    causal_offset, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory a block of the kernel for head dim D takes, in bytes
+// (-1 for a D it does not take).
+extern "C" int mxt_flash_attention_smem_bytes(int D) {
+  switch (D) {
+    case 16: return smem_bytes<16>();
+    case 32: return smem_bytes<32>();
+    case 64: return smem_bytes<64>();
+    case 128: return smem_bytes<128>();
+    default: return -1;
+  }
 }
