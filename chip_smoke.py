@@ -139,14 +139,18 @@ def build_report(_kernels):
     return seconds
 
 
+STAGINGS = ("async16", "async4", "widen")   # the kernel's enum Staging
+
+
 def demangle(mangled):
-    """flash_attention_fwd_kernel<float, 64, ...> from its mangled name."""
+    """flash_attention_fwd_kernel<float,64,async16> from its mangled name."""
     m = re.search(r"(flash_attention_fwd_kernel)I(.*?)EEv", mangled)
     if not m:
         return mangled
-    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|^(f)", m.group(2))
-    names = ["bf16" if bf else "float" if f else num
-             for num, bf, f in args]
+    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|^(f)|StagingE(\d+)E",
+                      m.group(2))
+    names = ["bf16" if bf else "float" if f else num if num
+             else STAGINGS[int(st)] for num, bf, f, st in args]
     return "%s<%s>" % (m.group(1), ",".join(names))
 
 
@@ -241,6 +245,16 @@ def check_kernel(cuda_ops, dev):
     ops_ms = min(cuda_core_ms, tensor_core_ms)
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    # the other staging paths at the same shape: fp32 rows D + 1 floats
+    # apart (4-byte copies) and bf16 (loads widened by the threads)
+    qu, ku, vu = (randn(B, H, T, D + 1)[..., 1:] for _ in range(3))
+    ms_async4 = time_ms(lambda: cuda_ops.flash_attention(qu, ku, vu,
+                                                         causal=True))
+    ms_bf16 = time_ms(lambda: cuda_ops.flash_attention(qb, kb, vb,
+                                                       causal=True))
+    phase("kernel_time_staging", shape=(B, H, T, D),
+          calls_per_timing=TIMED_CALLS, fp32_unaligned_ms=ms_async4,
+          bf16_ms=ms_bf16)
     phase("kernel_time", shape=(B, H, T, D), calls_per_timing=TIMED_CALLS,
           ms=ms, plain_ms=plain_ms, library_ms=library_ms,
           bound_cuda_core_ms=cuda_core_ms,

@@ -24,8 +24,12 @@
 //
 // Layout: a block is 4 warps and owns BQ = 64 query rows of one (b, h); each
 // warp owns 16 rows (one m16 tile).  K/V tiles of BK = 64 keys are staged in
-// shared memory as fp32 (bf16 widened on the way in) with a row stride of
-// D + 4 floats.
+// shared memory as fp32 with a row stride of D + 4 floats, in two stages:
+// tile j + 1 is copied while tile j computes.  How a tile is copied is
+// chosen per launch: 16-byte cp.async.cg for fp32 inputs whose base pointers
+// and (B, H, T) strides are 16-byte multiples (the served head views are),
+// 4-byte cp.async.ca for other fp32 inputs, and loads widened to fp32 and
+// stored by the threads for bf16.
 //
 // Fragments of m16n8k8 tf32, g = lane / 4, t = lane % 4:
 //   A: a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4), a3 = (g+8, t+4)
@@ -110,50 +114,71 @@ __device__ __forceinline__ void mma3(float* c, const uint32_t* ab,
   mma(c, ab, bb);
 }
 
+// Asynchronous copy of `bytes` (4 or 16) from global to shared memory;
+// src_bytes = 0 writes zeros and reads nothing.
+template <int bytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                 :: "r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(n) : "memory");
+}
+
+// How a K/V tile reaches shared memory, chosen per launch by dtype and
+// alignment: 16-byte cp.async (fp32 whose base pointers and (B, H, T)
+// strides are 16-byte multiples), 4-byte cp.async (any other fp32), or
+// synchronous loads widened to fp32 (bf16).
+enum Staging { kAsync16, kAsync4, kWiden };
+
 // Stage keys k0..k0+BK-1 of K and V into shared memory as fp32, rows past
-// Tk as zeros.  `vec`: base pointers and row strides allow 16-byte loads.
-template <typename T, int D>
+// Tk as zeros.  The cp.async paths only issue the copies.
+template <typename T, int D, Staging S>
 __device__ __forceinline__ void stage_tile(float* ks, float* vs, const T* kb,
                                            const T* vb, long long skt,
-                                           long long svt, int k0, int Tk,
-                                           bool vec) {
+                                           long long svt, int k0, int Tk) {
   constexpr int LD = D + 4;
-  if constexpr (sizeof(T) == 4) {
-    if (vec) {
-      constexpr int CPR = D / 4;  // 16-byte chunks per row
-      for (int c = threadIdx.x; c < BK * CPR; c += kThreads) {
-        const int r = c / CPR, col = (c % CPR) * 4;
-        const int kp = k0 + r;
-        float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-        if (kp < Tk) {
-          kx = *reinterpret_cast<const float4*>(kb + kp * skt + col);
-          vx = *reinterpret_cast<const float4*>(vb + kp * svt + col);
-        }
-        *reinterpret_cast<float4*>(ks + r * LD + col) = kx;
-        *reinterpret_cast<float4*>(vs + r * LD + col) = vx;
+  if constexpr (S == kAsync16) {
+    constexpr int CPR = D / 4;  // 16-byte chunks per row
+    for (int c = threadIdx.x; c < BK * CPR; c += kThreads) {
+      const int r = c / CPR, col = (c % CPR) * 4;
+      const int kp = k0 + r;
+      const bool in = kp < Tk;
+      cp_async<16>(ks + r * LD + col, in ? kb + kp * skt + col : kb, in);
+      cp_async<16>(vs + r * LD + col, in ? vb + kp * svt + col : vb, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BK * D; e += kThreads) {
+      const int r = e / D, col = e % D;
+      const int kp = k0 + r;
+      const bool in = kp < Tk;
+      if constexpr (S == kAsync4) {
+        cp_async<4>(ks + r * LD + col, in ? kb + kp * skt + col : kb, in);
+        cp_async<4>(vs + r * LD + col, in ? vb + kp * svt + col : vb, in);
+      } else {
+        ks[r * LD + col] = in ? to_float(kb[kp * skt + col]) : 0.f;
+        vs[r * LD + col] = in ? to_float(vb[kp * svt + col]) : 0.f;
       }
-      return;
     }
-  }
-  for (int e = threadIdx.x; e < BK * D; e += kThreads) {
-    const int r = e / D, col = e % D;
-    const int kp = k0 + r;
-    float kx = 0.f, vx = 0.f;
-    if (kp < Tk) {
-      kx = to_float(kb[kp * skt + col]);
-      vx = to_float(vb[kp * svt + col]);
-    }
-    ks[r * LD + col] = kx;
-    vs[r * LD + col] = vx;
   }
 }
 
 template <int D>
 constexpr int smem_bytes() {
-  return (BQ + 2 * BK) * (D + 4) * 4;  // Q, then one K and one V tile
+  return (BQ + 4 * BK) * (D + 4) * 4;  // Q, then two stages of K and V
 }
 
-template <typename T, int D>
+template <typename T, int D, Staging S>
 __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int H,
@@ -161,15 +186,14 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            long long sqt, long long skb, long long skh,
                            long long skt, long long svb, long long svh,
                            long long svt, int causal, int causal_offset,
-                           float scale, bool vec) {
+                           float scale) {
   constexpr int LD = D + 4;
   constexpr int KD = D / 8;      // k8 steps over D in S; n8 tiles of O
   constexpr int NJ = BK / 8;     // 8-key steps per tile
   constexpr bool kQInRegs = D <= 64;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;              // BQ x LD, pre-scaled q
-  float* ks = qs + BQ * LD;      // BK x LD
-  float* vs = ks + BK * LD;      // BK x LD
+  float* kvs = qs + BQ * LD;     // 2 stages x (K, V) x BK x LD
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -183,6 +207,17 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * sqb + h * sqh;
   const T* kb = k + b * skb + h * skh;
   const T* vb = v + b * svb + h * svh;
+
+  // keys any row of this block can see
+  int n_keys = Tk;
+  if (causal) {
+    const int last_q = min(Tq, q0 + BQ) - 1;
+    n_keys = max(0, min(Tk, last_q + causal_offset + 1));
+  }
+  const int n_tiles = (n_keys + BK - 1) / BK;
+  if (n_tiles > 0)
+    stage_tile<T, D, S>(kvs, kvs + BK * LD, kb, vb, skt, svt, 0, Tk);
+  cp_async_commit();
 
   for (int e = threadIdx.x; e < BQ * D; e += kThreads) {
     const int r = e / D, col = e % D;
@@ -204,12 +239,6 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // keys any row of this block can see
-  int n_keys = Tk;
-  if (causal) {
-    const int last_q = min(Tq, q0 + BQ) - 1;
-    n_keys = max(0, min(Tk, last_q + causal_offset + 1));
-  }
   // the last key the warp's first row sees: tiles up to it need no mask
   const int warp_first_key_limit = q0 + wr + causal_offset;
 
@@ -220,10 +249,20 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m0 = kMasked, m1 = kMasked;  // running max of rows row0, row0 + 8
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
-  for (int k0 = 0; k0 < n_keys; k0 += BK) {
-    __syncthreads();  // previous tile fully consumed
-    stage_tile<T, D>(ks, vs, kb, vb, skt, svt, k0, Tk, vec);
-    __syncthreads();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    // the next tile loads into the other stage while this one computes;
+    // the barrier that ended the previous step freed that stage
+    if (it + 1 < n_tiles) {
+      float* next = kvs + ((it + 1) & 1) * 2 * BK * LD;
+      stage_tile<T, D, S>(next, next + BK * LD, kb, vb, skt, svt, k0 + BK,
+                          Tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile `it` have landed
+    __syncthreads();     // and everyone's
+    const float* ks = kvs + (it & 1) * 2 * BK * LD;
+    const float* vs = ks + BK * LD;
 
     // S = Q K^T for the tile's 64 keys
     float s[NJ][4];
@@ -324,6 +363,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mma3(o_acc[n], pb, ps, bb, bs);
       }
     }
+    __syncthreads();  // stage `it & 1` consumed before it is refilled
   }
 
 #pragma unroll
@@ -347,6 +387,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// base pointer and (B, H, T) strides (elements of 4 bytes) 16-byte multiples
 bool aligned16(const void* p, const long long* st) {
   if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   for (int i = 0; i < 3; ++i)
@@ -354,26 +395,41 @@ bool aligned16(const void* p, const long long* st) {
   return true;
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Tq, int Tk, const long long* st, int causal, int causal_offset,
-           float scale, cudaStream_t stream) {
+template <typename T, int D, Staging S>
+int launch_staged(const void* q, const void* k, const void* v, void* o, int B,
+                  int H, int Tq, int Tk, const long long* st, int causal,
+                  int causal_offset, float scale, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<D>();
-  auto kernel = flash_attention_fwd_kernel<T, D>;
+  auto kernel = flash_attention_fwd_kernel<T, D, S>;
   if (kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const bool vec = sizeof(T) == 4 && aligned16(k, st + 3) &&
-                   aligned16(v, st + 6);
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, Tq, Tk, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, causal_offset,
-      scale, vec);
+      scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int Tq, int Tk, const long long* st, int causal, int causal_offset,
+           float scale, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4) {
+    if (aligned16(k, st + 3) && aligned16(v, st + 6))
+      return launch_staged<T, D, kAsync16>(q, k, v, o, B, H, Tq, Tk, st,
+                                           causal, causal_offset, scale,
+                                           stream);
+    return launch_staged<T, D, kAsync4>(q, k, v, o, B, H, Tq, Tk, st, causal,
+                                        causal_offset, scale, stream);
+  } else {
+    return launch_staged<T, D, kWiden>(q, k, v, o, B, H, Tq, Tk, st, causal,
+                                       causal_offset, scale, stream);
+  }
 }
 
 template <typename T>
