@@ -23,7 +23,6 @@ import subprocess
 import sys
 import threading
 import time
-
 from pathlib import Path
 
 import numpy as np
@@ -100,12 +99,11 @@ def build_report(_kernels):
             continue
         if name is None:
             continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m:
-            instances[name].update(stack=int(m.group(1)),
-                                   spill_stores=int(m.group(2)),
-                                   spill_loads=int(m.group(3)))
+            instances[name].update(spill_stores=int(m.group(1)),
+                                   spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             instances[name]["registers"] = int(m.group(1))
@@ -136,7 +134,6 @@ def build_report(_kernels):
     if not sum(hmma.values()):
         fail("no HMMA instruction in the kernel's SASS: the tensor cores "
              "do not run")
-    return seconds
 
 
 STAGINGS = ("async16", "async4", "widen")   # the kernel's enum Staging

@@ -24,7 +24,7 @@
 // integer/fp32 ops (see split()): cvt.rna.tf32.f32 compiles to five, and
 // the kernel issues instructions at well under one a cycle, so every op of
 // the split, done for each K and V element by each of the 4 warps, shows in
-// its time.  exp2 is ex2.approx on the log2e-scaled scores.
+// its time.
 //
 // Layout: a block is 4 warps and owns BQ = 64 query rows of one (b, h); each
 // warp owns 16 rows (one m16 tile).  K/V tiles of BK = 64 keys are staged in
@@ -59,8 +59,8 @@
 // in 255 registers.  K/V fragments are split as they are read.
 //
 // Registers (ptxas -v, sm_90a), no spills in any instance:
-//   fp32 (both staging paths) D = 16/32/64/128: 141/165/214/199;
-//   bf16 D = 16/32/64/128: 135/163/210/196.
+//   fp32 (both staging paths) D = 16/32/64/128: 139/167/213/199;
+//   bf16 D = 16/32/64/128: 137/163/210/196.
 // Dynamic shared memory a block: 25,600/46,080/87,040/168,960 bytes, so two
 // blocks (8 warps) share an SM for D <= 64 and one for D = 128.
 //
@@ -91,12 +91,6 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // x = big + small: big is x rounded to TF32 (to nearest, ties away, as
@@ -336,13 +330,10 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, w));
     }
     const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-    const float alpha0 = exp2_approx((m0 - mn0) * kLog2e);
-    const float alpha1 = exp2_approx((m1 - mn1) * kLog2e);
+    const float alpha0 = exp2f((m0 - mn0) * kLog2e);
+    const float alpha1 = exp2f((m1 - mn1) * kLog2e);
     m0 = mn0;
     m1 = mn1;
-    // p = 2^(s log2e - m log2e): the rounding of m log2e is shared by the
-    // row's p and its sum, so it cancels in the division at the end
-    const float ml0 = m0 * kLog2e, ml1 = m1 * kLog2e;
     l0 *= alpha0;
     l1 *= alpha1;
 #pragma unroll
@@ -354,10 +345,10 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      s[j][0] = exp2_approx(fmaf(s[j][0], kLog2e, -ml0));
-      s[j][1] = exp2_approx(fmaf(s[j][1], kLog2e, -ml0));
-      s[j][2] = exp2_approx(fmaf(s[j][2], kLog2e, -ml1));
-      s[j][3] = exp2_approx(fmaf(s[j][3], kLog2e, -ml1));
+      s[j][0] = exp2f((s[j][0] - m0) * kLog2e);
+      s[j][1] = exp2f((s[j][1] - m0) * kLog2e);
+      s[j][2] = exp2f((s[j][2] - m1) * kLog2e);
+      s[j][3] = exp2f((s[j][3] - m1) * kLog2e);
       l0 += s[j][0] + s[j][1];
       l1 += s[j][2] + s[j][3];
     }

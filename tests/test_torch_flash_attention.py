@@ -6,6 +6,9 @@ tests/test_pallas.py runs it) and to the JAX dense reference, on the same
 seeded numpy inputs, at the bounds test_pallas.py pins (2e-5 in fp32).
 The CUDA kernel itself runs only on the card (chip_smoke.py).
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -145,3 +148,25 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(MXNetError, match="nvcc not found"):
         _kernels._nvcc()
     assert _kernels._SOURCE.is_file()
+
+
+def test_kernel_build_keeps_compiler_output(monkeypatch, tmp_path):
+    """The build returns nvcc's output (ptxas -v) and keeps it beside the
+    library, where build_log reads it."""
+    from mxnet_tpu_torch import _kernels
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!%s\nimport sys\nargs = sys.argv\n"
+        "open(args[args.index('-o') + 1], 'w').write('lib')\n"
+        "print(\"ptxas info    : Used 42 registers\", ' '.join(args[1:]))\n"
+        % sys.executable)
+    fake.chmod(0o755)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_kernels, "_DEFAULT_NVCC", fake)
+    monkeypatch.setattr(_kernels, "_BUILD_DIR", tmp_path / "build")
+    lib = _kernels.library_path()
+    out = _kernels._build(lib)
+    assert "Used 42 registers" in out and "-Xptxas -v" in out
+    assert lib.read_text() == "lib"
+    assert lib.with_suffix(".log").read_text() == out
+    assert not [p for p in os.listdir(lib.parent) if ".tmp-" in p]

@@ -117,7 +117,7 @@ def emulate_kernel(q, k, v, causal, scale, product=mma3):
         s = torch.where(keep, s, torch.tensor(MASKED))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp2((m - m_new) * LOG2E)
-        p = torch.exp2(s * LOG2E - m_new * LOG2E)
+        p = torch.exp2((s - m_new) * LOG2E)
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha
         for j0 in range(0, BK, 8):
