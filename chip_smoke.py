@@ -43,6 +43,7 @@ PEAKS = {"H100 PCIe": (51.2e12, 378e12, 2.0e12),
          "H100 NVL": (60e12, 417.5e12, 3.9e12),
          "H100": (67e12, 495e12, 3.35e12)}
 TIMED_CALLS = 10   # back-to-back calls between one pair of CUDA events
+BQ, BK = 64, 64    # the kernel's query rows a block and keys a K/V tile
 
 
 def phase(label, **fields):
@@ -84,11 +85,11 @@ def time_ms(fn, reps=20, calls=TIMED_CALLS):
 
 
 def build_report(_kernels):
-    """Phase 1: build the kernel, print ptxas's registers, spills and the
-    shared memory of each instance, and count the tensor-core (HMMA)
+    """Phase 1: build the kernel, print ptxas's registers and spills and the
+    dynamic shared memory of each instance, and count the tensor-core (HMMA)
     instructions in the library's SASS; fails if there are none."""
     t0 = time.time()
-    lib = _kernels.load()
+    _kernels.load()
     seconds = round(time.time() - t0, 2)
     instances, name = {}, None
     for line in _kernels.build_log().splitlines():
@@ -123,32 +124,17 @@ def build_report(_kernels):
           seconds=seconds, instances=len(instances),
           hmma=sum(hmma.values()))
     for mangled, info in sorted(instances.items()):
-        D = re.search(r"Li(\d+)E", mangled)   # the head dim comes first
-        phase("instance", kernel=demangle(mangled),
-              registers=info.get("registers"),
+        D = int(re.search(r"Li(\d+)E", mangled).group(1))  # the head dim
+        phase("instance", kernel=mangled, registers=info.get("registers"),
               spill_stores=info.get("spill_stores"),
               spill_loads=info.get("spill_loads"),
-              smem_bytes=(lib.mxt_flash_attention_smem_bytes(int(D.group(1)))
-                          if D else None),
+              # Q, then two stages of K and V, rows D + 4 floats apart
+              # (smem_bytes() in the source)
+              smem_bytes=(BQ + 4 * BK) * (D + 4) * 4,
               hmma=hmma.get(mangled, 0))
     if not sum(hmma.values()):
         fail("no HMMA instruction in the kernel's SASS: the tensor cores "
              "do not run")
-
-
-STAGINGS = ("async16", "async4", "widen")   # the kernel's enum Staging
-
-
-def demangle(mangled):
-    """flash_attention_fwd_kernel<float,64,async16> from its mangled name."""
-    m = re.search(r"(flash_attention_fwd_kernel)I(.*?)EEv", mangled)
-    if not m:
-        return mangled
-    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|^(f)|StagingE(\d+)E",
-                      m.group(2))
-    names = ["bf16" if bf else "float" if f else num if num
-             else STAGINGS[int(st)] for num, bf, f, st in args]
-    return "%s<%s>" % (m.group(1), ",".join(names))
 
 
 def check_kernel(cuda_ops, dev):
@@ -171,7 +157,7 @@ def check_kernel(cuda_ops, dev):
     # the register-heaviest instance at full length
     cases.append((1, 4, 1024, 1024, 128, True))
     # inputs whose base is 4 but not 16 bytes aligned and whose rows are
-    # D + 1 floats apart: the kernel stages them by its 4-byte path
+    # D + 1 floats apart: the kernel stages them by widening loads, as bf16
     cases += [(2, 2, 256, 256, 64, c, "unaligned") for c in (False, True)]
     worst = 0.0
     for B, H, T, Tk, D, causal, *layout in cases:
@@ -242,16 +228,12 @@ def check_kernel(cuda_ops, dev):
     ops_ms = min(cuda_core_ms, tensor_core_ms)
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    # the other staging paths at the same shape: fp32 rows D + 1 floats
-    # apart (4-byte copies) and bf16 (loads widened by the threads)
-    qu, ku, vu = (randn(B, H, T, D + 1)[..., 1:] for _ in range(3))
-    ms_async4 = time_ms(lambda: cuda_ops.flash_attention(qu, ku, vu,
-                                                         causal=True))
+    # the other staging path at the same shape: bf16, loads widened by the
+    # threads
     ms_bf16 = time_ms(lambda: cuda_ops.flash_attention(qb, kb, vb,
                                                        causal=True))
     phase("kernel_time_staging", shape=(B, H, T, D),
-          calls_per_timing=TIMED_CALLS, fp32_unaligned_ms=ms_async4,
-          bf16_ms=ms_bf16)
+          calls_per_timing=TIMED_CALLS, bf16_ms=ms_bf16)
     phase("kernel_time", shape=(B, H, T, D), calls_per_timing=TIMED_CALLS,
           ms=ms, plain_ms=plain_ms, library_ms=library_ms,
           bound_cuda_core_ms=cuda_core_ms,

@@ -101,7 +101,5 @@ def load():
             lib = ctypes.CDLL(str(path))
             lib.mxt_flash_attention_fwd.argtypes = _ARGTYPES
             lib.mxt_flash_attention_fwd.restype = ctypes.c_int
-            lib.mxt_flash_attention_smem_bytes.argtypes = [_I]
-            lib.mxt_flash_attention_smem_bytes.restype = ctypes.c_int
             _lib = lib
         return _lib

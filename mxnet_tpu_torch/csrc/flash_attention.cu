@@ -32,8 +32,8 @@
 // tile j + 1 is copied while tile j computes.  How a tile is copied is
 // chosen per launch: 16-byte cp.async.cg for fp32 inputs whose base pointers
 // and (B, H, T) strides are 16-byte multiples (the served head views are),
-// 4-byte cp.async.ca for other fp32 inputs, and loads widened to fp32 and
-// stored by the threads for bf16.
+// and loads widened to fp32 and stored by the threads for bf16 and any other
+// fp32 input.
 //
 // Fragments of m16n8k8 tf32, g = lane / 4, t = lane % 4:
 //   A: a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4), a3 = (g+8, t+4)
@@ -59,8 +59,9 @@
 // in 255 registers.  K/V fragments are split as they are read.
 //
 // Registers (ptxas -v, sm_90a), no spills in any instance:
-//   fp32 (both staging paths) D = 16/32/64/128: 139/167/213/199;
-//   bf16 D = 16/32/64/128: 137/163/210/196.
+//   fp32, 16-byte cp.async, D = 16/32/64/128: 139/167/213/199;
+//   fp32, widened loads,    D = 16/32/64/128: 135/163/210/194;
+//   bf16,                   D = 16/32/64/128: 137/163/210/196.
 // Dynamic shared memory a block: 25,600/46,080/87,040/168,960 bytes, so two
 // blocks (8 warps) share an SM for D <= 64 and one for D = 128.
 //
@@ -121,18 +122,13 @@ __device__ __forceinline__ void mma3(float* c, const uint32_t* ab,
   mma(c, ab, bb);
 }
 
-// Asynchronous copy of `bytes` (4 or 16) from global to shared memory;
-// src_bytes = 0 writes zeros and reads nothing.
-template <int bytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool in) {
+// Asynchronous 16-byte copy from global to shared memory; src_bytes = 0
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if constexpr (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-                 :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-                 :: "r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -144,12 +140,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // How a K/V tile reaches shared memory, chosen per launch by dtype and
 // alignment: 16-byte cp.async (fp32 whose base pointers and (B, H, T)
-// strides are 16-byte multiples), 4-byte cp.async (any other fp32), or
-// synchronous loads widened to fp32 (bf16).
-enum Staging { kAsync16, kAsync4, kWiden };
+// strides are 16-byte multiples), or synchronous loads widened to fp32 (bf16
+// and any other fp32).
+enum Staging { kAsync16, kWiden };
 
 // Stage keys k0..k0+BK-1 of K and V into shared memory as fp32, rows past
-// Tk as zeros.  The cp.async paths only issue the copies.
+// Tk as zeros.  The cp.async path only issues the copies.
 template <typename T, int D, Staging S>
 __device__ __forceinline__ void stage_tile(float* ks, float* vs, const T* kb,
                                            const T* vb, long long skt,
@@ -161,21 +157,16 @@ __device__ __forceinline__ void stage_tile(float* ks, float* vs, const T* kb,
       const int r = c / CPR, col = (c % CPR) * 4;
       const int kp = k0 + r;
       const bool in = kp < Tk;
-      cp_async<16>(ks + r * LD + col, in ? kb + kp * skt + col : kb, in);
-      cp_async<16>(vs + r * LD + col, in ? vb + kp * svt + col : vb, in);
+      cp_async16(ks + r * LD + col, in ? kb + kp * skt + col : kb, in);
+      cp_async16(vs + r * LD + col, in ? vb + kp * svt + col : vb, in);
     }
   } else {
     for (int e = threadIdx.x; e < BK * D; e += kThreads) {
       const int r = e / D, col = e % D;
       const int kp = k0 + r;
       const bool in = kp < Tk;
-      if constexpr (S == kAsync4) {
-        cp_async<4>(ks + r * LD + col, in ? kb + kp * skt + col : kb, in);
-        cp_async<4>(vs + r * LD + col, in ? vb + kp * svt + col : vb, in);
-      } else {
-        ks[r * LD + col] = in ? to_float(kb[kp * skt + col]) : 0.f;
-        vs[r * LD + col] = in ? to_float(vb[kp * svt + col]) : 0.f;
-      }
+      ks[r * LD + col] = in ? to_float(kb[kp * skt + col]) : 0.f;
+      vs[r * LD + col] = in ? to_float(vb[kp * svt + col]) : 0.f;
     }
   }
 }
@@ -431,12 +422,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
       return launch_staged<T, D, kAsync16>(q, k, v, o, B, H, Tq, Tk, st,
                                            causal, causal_offset, scale,
                                            stream);
-    return launch_staged<T, D, kAsync4>(q, k, v, o, B, H, Tq, Tk, st, causal,
-                                        causal_offset, scale, stream);
-  } else {
-    return launch_staged<T, D, kWiden>(q, k, v, o, B, H, Tq, Tk, st, causal,
-                                       causal_offset, scale, stream);
   }
+  return launch_staged<T, D, kWiden>(q, k, v, o, B, H, Tq, Tk, st, causal,
+                                     causal_offset, scale, stream);
 }
 
 template <typename T>
@@ -475,16 +463,4 @@ extern "C" int mxt_flash_attention_fwd(
     return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Tq, Tk, D, st, causal,
                                    causal_offset, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Dynamic shared memory a block of the kernel for head dim D takes, in bytes
-// (-1 for a D it does not take).
-extern "C" int mxt_flash_attention_smem_bytes(int D) {
-  switch (D) {
-    case 16: return smem_bytes<16>();
-    case 32: return smem_bytes<32>();
-    case 64: return smem_bytes<64>();
-    case 128: return smem_bytes<128>();
-    default: return -1;
-  }
 }
