@@ -1,11 +1,12 @@
 """Chip smoke test of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU.
 
 Builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc/``, holds each
-against its plain PyTorch version on the card, then serves the full-width
+against its plain PyTorch version on the card (forward, and the gradient
+the training path takes through it), then drives the full-width
 TransformerLM (vocab 32768, dim 768, 12 layers, 12 heads, T up to 1024;
-random weights from a seed) through ``serving.ModelServer`` and checks that
-the served path went through the kernels and agrees with the same model on
-the CPU.
+random weights from a seed) down both of the port's paths: served through
+``serving.ModelServer``, and trained with ``gluon.Trainer`` and Adam.  Each
+path must go through the kernel and agree with the same model on the CPU.
 
     python3 chip_smoke.py
 
@@ -36,6 +37,10 @@ FP32_BOUND = 2e-5     # tests/test_pallas.py's bound for the kernel in fp32
 BF16_BOUND = 1e-2     # bf16 output rounding (8-bit mantissa) on O(1) values
 SERVE_ATOL = SERVE_RTOL = 1e-3   # card vs CPU logits: fp32 sums reordered
 ARGMAX_AGREE = 0.99
+GRAD_BOUND = 1e-3     # tests/test_pallas.py::test_flash_attention_grad
+TRAIN_B, TRAIN_STEPS, TRAIN_LR = 8, 5, 3e-3   # bench.py's batch, Adam's lr
+# card vs CPU training at full width, depth cut to 2: (depth, B, T, steps)
+VS_CPU = (2, 2, 256, 3)
 
 # published peaks by card (NVIDIA data sheets, dense): fp32 on CUDA cores
 # and TF32 on tensor cores in FLOP/s, memory bandwidth in bytes/s
@@ -248,14 +253,11 @@ def check_kernel(cuda_ops, dev):
 
 def serve(cuda_ops, dev, card):
     """Phase 3: the full-width LM served through ModelServer on the card."""
-    from mxnet_tpu_torch import initializer, serving
+    from mxnet_tpu_torch import serving
     from mxnet_tpu_torch.models import TransformerLM
 
     t0 = time.time()
-    net = TransformerLM(VOCAB, dim=DIM, heads=HEADS, depth=DEPTH,
-                        max_len=MAX_LEN, device=dev)
-    initializer.initialize(net, initializer.Xavier(),
-                           generator=torch.Generator().manual_seed(0))
+    net = new_lm(dev, DEPTH, 0)
     n_params = sum(p.numel() for p in net.parameters())
     phase("model", params=n_params, build_s=round(time.time() - t0, 2))
 
@@ -381,6 +383,257 @@ def profile_batch(net, dev, B=4):
                                     for e in top]))
 
 
+def kernel_grad(cuda_ops, dev):
+    """Phase: the training path's gradient through the kernel.  The loss
+    of tests/test_pallas.py::test_flash_attention_grad, sum(o**2), is
+    backpropagated through ``flash_attention`` (kernel forward, the plain
+    version's gradient backward) and through the plain version alone;
+    q/k/v gradients held at GRAD_BOUND.  Then the forward and backward at
+    the training shape are timed, beside the library's fused attention."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    before = cuda_ops.flash_attention.launches
+    worst = 0.0
+    train_shape = (TRAIN_B, HEADS, MAX_LEN, DIM // HEADS)
+    for shape in ((1, 1, 128, 32), train_shape):
+        q, k, v = (torch.randn(*shape, generator=g, device=dev,
+                               requires_grad=True) for _ in range(3))
+        got = torch.autograd.grad(
+            (cuda_ops.flash_attention(q, k, v, causal=True) ** 2).sum(),
+            (q, k, v))
+        want = torch.autograd.grad((cuda_ops._attention_reference(
+            q, k, v, True, shape[-1] ** -0.5) ** 2).sum(), (q, k, v))
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        worst = max(worst, err)
+        if not err < GRAD_BOUND:
+            fail("flash_attention gradient at %s err %.3g >= %g"
+                 % (shape, err, GRAD_BOUND))
+    launches = cuda_ops.flash_attention.launches - before
+    if launches != 2:
+        fail("kernel_grad launched the kernel %d times, not 2" % launches)
+    # q, k, v are the training shape's from here on
+    grad_out = torch.randn(*train_shape, generator=g, device=dev)
+
+    def fwd_bwd(attn):
+        return lambda: torch.autograd.grad(attn(q, k, v), (q, k, v),
+                                           grad_out)
+    fwd_bwd_ms = time_ms(fwd_bwd(lambda q, k, v: cuda_ops.flash_attention(
+        q, k, v, causal=True)), reps=5, calls=4)
+    library_fwd_bwd_ms = time_ms(fwd_bwd(
+        lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)), reps=5, calls=4)
+    phase("kernel_grad", cases=2, max_abs_err=worst, bound=GRAD_BOUND,
+          launches=launches, shape=train_shape, fwd_bwd_ms=fwd_bwd_ms,
+          library_fwd_bwd_ms=library_fwd_bwd_ms)
+    return {"fwd_bwd_ms": fwd_bwd_ms,
+            "library_fwd_bwd_ms": library_fwd_bwd_ms}
+
+
+def forward_backward(net, ce, x, y, pos):
+    """One recorded forward, the Gluon loss (mean over tokens) and its
+    backward, as ``models/transformer_lm.py`` ``main`` runs them."""
+    from mxnet_tpu_torch import autograd
+
+    with autograd.record():
+        logits = net(x, pos)
+        loss = ce(logits.reshape(-1, logits.shape[-1]), y.reshape(-1)).mean()
+    loss.backward()
+    return loss
+
+
+def lm_batches(rng, steps, B, T, dev):
+    from mxnet_tpu_torch.models.transformer_lm import pattern_batch
+
+    out = []
+    for _ in range(steps):
+        x, y = pattern_batch(rng, B, T, VOCAB)
+        out.append((torch.from_numpy(x).to(dev),
+                    torch.from_numpy(y.astype(np.float32)).to(dev)))
+    return out
+
+
+def new_lm(dev, depth, seed):
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.models import TransformerLM
+
+    net = TransformerLM(VOCAB, dim=DIM, heads=HEADS, depth=depth,
+                        max_len=MAX_LEN, device=dev)
+    return initializer.initialize(
+        net, initializer.Xavier(),
+        generator=torch.Generator().manual_seed(seed))
+
+
+def train(cuda_ops, dev, card):
+    """Phase: the full-width LM takes TRAIN_STEPS Adam steps through
+    ``gluon.Trainer`` on ``pattern_batch`` data; every step's forward must
+    launch the kernel once a layer.  Step time by CUDA events, median over
+    the steps after the first."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    net = new_lm(dev, DEPTH, 0)
+    trainer = gluon.Trainer(net.named_parameters(), "adam",
+                            {"learning_rate": TRAIN_LR})
+    ce = SoftmaxCrossEntropyLoss()
+    batches = lm_batches(np.random.RandomState(0), TRAIN_STEPS, TRAIN_B,
+                         MAX_LEN, dev)
+    pos = torch.arange(MAX_LEN, device=dev,
+                       dtype=torch.int32).expand(TRAIN_B, MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    cuda_ops.flash_attention.launches = 0
+    for x, y in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = forward_backward(net, ce, x, y, pos)
+        trainer.step(1)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(loss.item())
+        step_ms.append(start.elapsed_time(end))
+    launches = cuda_ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(np.isfinite(losses)):
+        fail("training losses not finite: %s" % losses)
+    if launches != DEPTH * TRAIN_STEPS:
+        fail("flash_attention launches %d != %d layers x %d steps"
+             % (launches, DEPTH, TRAIN_STEPS))
+    median_ms = float(np.median(step_ms[1:]))
+    phase("train", batch=(TRAIN_B, MAX_LEN), steps=TRAIN_STEPS,
+          losses=json.dumps(losses), launches=launches,
+          step_ms=json.dumps(step_ms), median_step_ms=median_ms,
+          tokens_per_s=TRAIN_B * MAX_LEN / (median_ms / 1e3),
+          peak_memory_gb=peak_gb, card='"%s"' % card)
+    return launches, (net, trainer, ce, batches[-1], pos)
+
+
+def train_profile(net, trainer, ce, batch, pos, card):
+    """Phase: where one full-width training step's time goes.  CUDA events
+    around its forward (with the loss), backward and update; then the same
+    step under torch.profiler: device time by kernel, the plain attention
+    backward (the Function's backward, recompute included) and the
+    update."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mxnet_tpu_torch import autograd
+
+    x, y = batch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    with autograd.record():
+        loss = ce(net(x, pos).reshape(-1, VOCAB), y.reshape(-1)).mean()
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    trainer.step(1)
+    ev[3].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms, upd_ms = (ev[i].elapsed_time(ev[i + 1])
+                              for i in range(3))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forward_backward(net, ce, x, y, pos)
+        with record_function("trainer.step"):
+            trainer.step(1)
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    averages = prof.key_averages()
+    # device-side kernels and copies; the range's annotation on the device
+    # timeline spans its kernels and idle gaps and is left out
+    kernels = [e for e in averages
+               if e.device_type != cpu and e.key != "trainer.step"]
+
+    def kernel_ms(pred):
+        return sum(e.self_device_time_total for e in kernels
+                   if pred(e.key)) / 1e3
+
+    def op_ms(key):   # a host-side op or range: the kernels under it
+        return sum(e.device_time_total for e in averages
+                   if e.key == key and e.device_type == cpu) / 1e3
+
+    def launched(event):   # (kernel name, us) under a host-side event
+        for k in event.kernels:
+            yield k.name, k.duration
+        for child in event.cpu_children:
+            yield from launched(child)
+
+    attn_bwd = [kd for e in prof.events()
+                if e.name == "_FlashAttentionBackward"
+                for kd in launched(e)]
+    attn_bwd_gemm = sum(d for n, d in attn_bwd if "gemm" in n.lower()) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    phase("train_profile", batch=(TRAIN_B, MAX_LEN), forward_ms=fwd_ms,
+          backward_ms=bwd_ms, update_ms=upd_ms,
+          step_ms=fwd_ms + bwd_ms + upd_ms,
+          device_ms=kernel_ms(lambda k: True),
+          flash_fwd_ms=kernel_ms(lambda k: "flash_attention_fwd" in k),
+          gemm_ms=kernel_ms(lambda k: "gemm" in k.lower()),
+          attention_backward_ms=op_ms("_FlashAttentionBackward"),
+          attention_backward_gemm_ms=attn_bwd_gemm,
+          update_device_ms=op_ms("trainer.step"),
+          card='"%s"' % card,
+          top_device_ms=json.dumps([[e.key[:70], e.count,
+                                     e.self_device_time_total / 1e3]
+                                    for e in top]))
+
+
+def train_vs_cpu(cuda_ops, dev):
+    """Phase: the same full-width LM, depth cut, trained on the card and
+    on the CPU from the same weights and batches: per-step losses and the
+    first step's gradients held at SERVE_ATOL/RTOL."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    depth, B, T, steps = VS_CPU
+    nets = {"card": new_lm(dev, depth, 1)}
+    nets["cpu"] = new_lm("cpu", depth, 1)
+    nets["cpu"].load_state_dict(nets["card"].state_dict())
+    trainers = {k: gluon.Trainer(n.named_parameters(), "adam",
+                                 {"learning_rate": TRAIN_LR})
+                for k, n in nets.items()}
+    ce = SoftmaxCrossEntropyLoss()
+    batches = lm_batches(np.random.RandomState(1), steps, B, T, "cpu")
+    pos = torch.arange(T, dtype=torch.int32).expand(B, T)
+    before = cuda_ops.flash_attention.launches
+    losses, grad_err = [], (0.0, None, None)
+    for step, (x, y) in enumerate(batches):
+        got = forward_backward(nets["card"], ce, x.to(dev), y.to(dev),
+                               pos.to(dev)).item()
+        want = forward_backward(nets["cpu"], ce, x, y, pos).item()
+        losses.append((got, want))
+        if not abs(got - want) <= SERVE_ATOL + SERVE_RTOL * abs(want):
+            fail("step %d loss on the card %.6f vs CPU %.6f"
+                 % (step, got, want))
+        if step == 0:
+            cpu_params = dict(nets["cpu"].named_parameters())
+            for name, p in nets["card"].named_parameters():
+                a, b = p.grad.cpu(), cpu_params[name].grad
+                err = (a - b).abs().max().item()
+                if err >= grad_err[0]:
+                    grad_err = (err, name, b.abs().max().item())
+                if not torch.allclose(a, b, atol=SERVE_ATOL,
+                                      rtol=SERVE_RTOL):
+                    fail("step 1 gradient of %s differs from the CPU: max "
+                         "abs err %.3g" % (name, err))
+        for t in trainers.values():
+            t.step(1)
+    launches = cuda_ops.flash_attention.launches - before
+    if launches != depth * steps:
+        fail("train_vs_cpu launched the kernel %d times, not %d"
+             % (launches, depth * steps))
+    cpu_params = dict(nets["cpu"].named_parameters())
+    param_err = max((p.detach().cpu() - cpu_params[n].detach()).abs().max()
+                    .item() for n, p in nets["card"].named_parameters())
+    phase("train_vs_cpu", depth=depth, batch=(B, T), steps=steps,
+          losses=json.dumps(losses), step1_grad_max_abs_err=grad_err[0],
+          worst_grad=grad_err[1], its_max_abs_grad=grad_err[2],
+          atol=SERVE_ATOL, rtol=SERVE_RTOL, launches=launches,
+          param_max_abs_diff_after=param_err)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the GPU only")
@@ -404,12 +657,19 @@ def main():
     build_report(_kernels)
 
     numbers = check_kernel(cuda_ops, dev)
-    launches = serve(cuda_ops, dev, smi)
+    numbers.update(kernel_grad(cuda_ops, dev))
+    launches_serve = serve(cuda_ops, dev, smi)
+    launches_train, state = train(cuda_ops, dev, smi)
+    train_profile(*state, smi)
+    del state
+    train_vs_cpu(cuda_ops, dev)
 
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
-              "launches": launches}
+              "launches": launches_serve + launches_train,
+              "launches_serve": launches_serve,
+              "launches_train": launches_train}
     kernel.update(numbers)
     print(json.dumps({"kernels": [kernel]}))
     print(smi)

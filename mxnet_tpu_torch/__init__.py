@@ -6,9 +6,10 @@ module for module and runs on an NVIDIA H100.  It imports ``torch`` and never
 (``cuda:0``) unless the caller passes ``device="cpu"``; with no CUDA device
 and no explicit device they raise :class:`MXNetError`.
 
-Ported so far: the flash-attention TransformerLM served through
-``serving.ModelServer``, with attention in a hand-written CUDA kernel
-(``ops/cuda_ops.py``, ``csrc/flash_attention.cu``).
+Ported so far: the flash-attention TransformerLM, served through
+``serving.ModelServer`` and trained through ``autograd``, ``gluon.loss``,
+``gluon.Trainer`` and the SGD and Adam optimizers, with attention in a
+hand-written CUDA kernel (``ops/cuda_ops.py``, ``csrc/flash_attention.cu``).
 """
 from .base import MXNetError
 from .context import cpu, current_context, gpu, tpu

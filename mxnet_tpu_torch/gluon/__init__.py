@@ -1,4 +1,6 @@
-"""Gluon layers (counterpart of ``mxnet_tpu/gluon``), as ``nn.Module``s."""
-from . import nn
+"""Gluon (counterpart of ``mxnet_tpu/gluon``): layers as ``nn.Module``s,
+losses and the Trainer."""
+from . import loss, nn
+from .trainer import Trainer
 
-__all__ = ["nn"]
+__all__ = ["nn", "loss", "Trainer"]

@@ -4,8 +4,9 @@ Only the layers the TransformerLM uses: :class:`Dense`, :class:`Embedding`,
 :class:`LayerNorm` and :class:`HybridSequential`.  Parameters keep the JAX
 package's shapes and names (Dense weight ``[units, in_units]``, LayerNorm
 ``gamma``/``beta``), so weights carry across unchanged.  Parameters are
-allocated uninitialized in fp32 on ``device`` (default ``cuda:0``); fill
-them with ``initializer.initialize`` or ``convert.load_mxnet_params``.
+allocated uninitialized in fp32 on ``device`` (default ``cuda:0``) and take
+gradients; fill them with ``initializer.initialize`` or
+``convert.load_mxnet_params``.
 """
 from __future__ import annotations
 
@@ -19,10 +20,9 @@ __all__ = ["Dense", "Embedding", "LayerNorm", "HybridSequential"]
 
 
 def _param(shape, device):
-    # forward-only slice: parameters take no gradient until training is
-    # ported
-    return nn.Parameter(torch.empty(shape, device=device),
-                        requires_grad=False)
+    # trainable, as Gluon's grad_req='write'; freeze with
+    # requires_grad_(False) (grad_req='null')
+    return nn.Parameter(torch.empty(shape, device=device))
 
 
 class Dense(nn.Module):

@@ -10,9 +10,10 @@ yardstick the kernel is held to on the card.  A tensor on the CPU takes
 it; a tensor on a CUDA device launches the kernel or raises.  There is no
 fallback from one to the other.
 
-Forward only: the ``torch.autograd.Function`` (whose backward is the
-gradient of the plain version, as the JAX ``custom_vjp`` does) comes with
-the training slice.
+Both devices go through one ``torch.autograd.Function``.  Its backward is
+the gradient of the plain version, recomputed from the saved q, k and v,
+as the JAX ``custom_vjp`` does (``pallas_ops.py:201-210``): the JAX
+package has no backward kernel, so neither has the port.
 """
 from __future__ import annotations
 
@@ -81,8 +82,8 @@ def flash_attention(q, k, v, causal=False, scale=None):
 
     CPU tensors run the plain version.  CUDA tensors run the hand-written
     kernel (fp32 or bf16, D in {16, 32, 64, 128}, D contiguous; other
-    strides are read as given), or raise.  Forward only: a CUDA input that
-    requires grad raises NotImplementedError.
+    strides are read as given), or raise.  Differentiable in q, k and v:
+    the backward is the gradient of the plain version.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q/k/v must be (B, H, T, D), got %s/%s/%s"
@@ -91,21 +92,40 @@ def flash_attention(q, k, v, causal=False, scale=None):
     _check_causal(causal, Tq, Tk)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    if q.device.type == "cpu":
-        return _attention_reference(q, k, v, causal, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise MXNetError("flash_attention runs on CUDA or CPU tensors, got "
                          "device %s" % q.device)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention is forward-only on CUDA; its autograd.Function "
-            "(backward = gradient of the plain version) comes with the "
-            "training slice")
-    return _flash_attention_cuda(q, k, v, causal, float(scale))
+    return _FlashAttention.apply(q, k, v, causal, float(scale))
 
 
 flash_attention.launches = 0   # kernel launches, counted where they happen
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel on the card, the plain version on the CPU.
+    Backward: the vjp of the plain version at the saved inputs (the JAX
+    ``f_bwd``).  The saved q/k/v may be strided views of one projection;
+    their gradients have the views' shapes, and autograd scatters them into
+    the projection's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        if q.device.type == "cpu":
+            return _attention_reference(q, k, v, causal, scale)
+        return _flash_attention_cuda(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wrt = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = _attention_reference(*inputs, ctx.causal, ctx.scale)
+            grads = iter(torch.autograd.grad(out, wrt, grad_out))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None, None)
 
 
 def _flash_attention_cuda(q, k, v, causal, scale):
