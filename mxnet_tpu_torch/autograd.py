@@ -11,9 +11,9 @@ torch's autograd is the tape, so only the two thread-local flags remain:
 - *training*: layers that act differently in training (dropout, batch
   norm) read :func:`is_training`.  None of the ported layers does yet.
 
-Gradients then land in each parameter's ``.grad``; ``gluon.Trainer`` reads
-them there and clears them after its update, which gives Gluon's
-``grad_req='write'``.
+Gradients then land in each parameter's ``.grad``, where ``gluon.Trainer``
+reads them; the Trainer makes each backward overwrite them, as Gluon's
+``grad_req='write'`` does.
 """
 from __future__ import annotations
 

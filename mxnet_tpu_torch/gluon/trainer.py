@@ -7,12 +7,18 @@ no kvstore for a single context), and updates every parameter that takes a
 gradient.
 
 Gluon's ``grad_req='write'``: a backward writes a parameter's gradient,
-where torch adds to it.  The Trainer clears each ``.grad`` once it has
-applied it, so every round of ``record``/``backward``/``step`` starts from
-no gradient.  A parameter with ``requires_grad=False`` (``grad_req='null'``)
-is left alone.
+where torch adds to it.  The Trainer hooks each parameter's gradient
+accumulator so that it drops the old ``.grad`` just before a backward
+stores the new one.  ``.grad`` then holds the last gradient written, as
+the JAX package's gradient buffer does, and a ``step`` with no backward
+since the last one applies that gradient again (zeros before the first
+backward).  ``torch.autograd.grad`` does not run the accumulator and leaves
+``.grad`` alone.  A parameter with ``requires_grad=False``
+(``grad_req='null'``) is left alone.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -22,40 +28,46 @@ from ..base import MXNetError
 __all__ = ["Trainer"]
 
 
-def _named(params):
-    """``params`` as a list of (name, parameter): a list or tuple of
-    parameters, a dict of them, or pairs such as
+def _write_grads(param):
+    """Hook ``param``'s gradient accumulator to drop ``.grad`` before it
+    stores a new one; returns the accumulator, which the caller holds."""
+    ref = weakref.ref(param)
+    accumulator = param.view_as(param).grad_fn.next_functions[0][0]
+
+    def drop_grad(grad_outputs):
+        ref().grad = None
+
+    accumulator.register_prehook(drop_grad)
+    return accumulator
+
+
+def _param_list(params):
+    """``params`` as a list of parameters: a list or tuple of them, a dict
+    of them, or (name, parameter) pairs such as
     ``module.named_parameters()`` gives."""
     if isinstance(params, dict):
-        params = list(params.items())
+        params = list(params.values())
     elif isinstance(params, (list, tuple)) or hasattr(params, "__next__"):
-        params = list(params)
+        params = [p[1] if isinstance(p, tuple) else p for p in params]
     else:
         raise ValueError("First argument must be a list or dict of "
                          "Parameters, got %s." % type(params))
-    named = []
-    for i, item in enumerate(params):
-        name, param = item if isinstance(item, tuple) else (str(i), item)
+    for param in params:
         if not isinstance(param, torch.nn.Parameter):
             raise ValueError("First argument must be a list or dict of "
                              "Parameters, got list of %s." % type(param))
-        named.append((name, param))
-    return named
+    return params
 
 
 class Trainer:
     """``Trainer(params, optimizer, optimizer_params)``; ``optimizer`` is a
     name (``"adam"``, ``"sgd"``) or an :class:`~..optimizer.Optimizer`.
     ``kvstore`` may be ``"device"``, ``"local"`` or None: on one device
-    there is none, and ``compression_params``/``update_on_kvstore`` have
-    nothing to act on.  A ``dist`` kvstore is not ported yet and raises."""
+    there is none.  A ``dist`` kvstore is not ported yet and raises."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore="device", compression_params=None,
-                 update_on_kvstore=None):
-        named = _named(params)
-        self._names = [n for n, _ in named]
-        self._params = [p for _, p in named]
+                 kvstore="device"):
+        self._params = _param_list(params)
         devices = {p.device for p in self._params}
         if len(devices) > 1:
             raise MXNetError("All Parameters must be on one device, got %s"
@@ -78,6 +90,9 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
+        # held so that each parameter keeps the accumulator that is hooked
+        self._accumulators = [_write_grads(p) for p in self._params
+                              if p.requires_grad]
 
     @property
     def learning_rate(self):
@@ -88,32 +103,26 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    def step(self, batch_size, ignore_stale_grad=False):
+    def step(self, batch_size):
         """Normalize by ``batch_size``, aggregate, update."""
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
-        self._update(ignore_stale_grad)
+        self._update()
 
     def allreduce_grads(self):
         """Aggregate the gradients across devices: none on one device."""
 
-    def update(self, batch_size, ignore_stale_grad=False):
+    def update(self, batch_size):
         """Normalize by ``batch_size`` and update, without aggregating."""
         self._optimizer.rescale_grad = self._scale / batch_size
-        self._update(ignore_stale_grad)
+        self._update()
 
-    def _update(self, ignore_stale_grad=False):
-        live = [(i, p) for i, p in enumerate(self._params) if p.requires_grad]
-        stale = [self._names[i] for i, p in live if p.grad is None]
-        if stale and not ignore_stale_grad:
-            raise MXNetError(
-                "Gradient of Parameters %s has not been written by backward "
-                "since the last step; call step(batch_size, "
-                "ignore_stale_grad=True) to skip them" % stale)
-        for i, param in live:
-            if param.grad is not None:
-                self._updater(i, param.grad, param)
-                param.grad = None
+    def _update(self):
+        for i, param in enumerate(self._params):
+            if param.requires_grad:
+                grad = param.grad
+                self._updater(i, torch.zeros_like(param) if grad is None
+                              else grad, param)
 
     def save_states(self, fname):
         """Write the optimizer's states and attributes to ``fname``."""

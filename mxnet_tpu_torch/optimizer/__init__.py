@@ -3,7 +3,5 @@ SGD (with momentum) and Adam."""
 from .optimizer import (SGD, Adam, Optimizer, Updater, create, get_updater,
                         register)
 
-opt = create  # MXNet's alias mx.optimizer.opt
-
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
-           "register", "opt"]
+           "register"]

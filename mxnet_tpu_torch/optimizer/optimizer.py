@@ -135,10 +135,9 @@ def _write_back(targets, values):
 class SGD(Optimizer):
     """SGD, with momentum when ``momentum`` > 0."""
 
-    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
+    def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
-        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -163,12 +162,11 @@ class Adam(Optimizer):
     ``epsilon`` is added to the uncorrected ``sqrt(var)``."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, lazy_update=True, **kwargs):
+                 epsilon=1e-8, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
-        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         return (torch.zeros_like(weight,

@@ -10,13 +10,15 @@ Same seeded numpy inputs and weights through both packages:
 - ``Adam`` and ``SGD(momentum)`` against ``mx.optimizer.create`` over three
   steps, at rtol 1e-6 / atol 1e-7 (tests/test_multichip_topologies.py's
   Adam bound);
-- the slice: the example's LM trained three Adam steps by the JAX Trainer
-  and by the port from the same weights and batches.  Losses at 1e-4
-  (test_torch_transformer_lm.py's logits bound), parameters at rtol 3e-5 /
-  atol 3e-6 (tests/test_compiled_fit.py's Adam bound), with Adam's
-  epsilon at 1e-6 (see LM_EPSILON);
+- the slice: the example's LM trained three Adam steps (default epsilon)
+  by the JAX Trainer and by the port from the same weights and batches.
+  Losses at 1e-4 (test_torch_transformer_lm.py's logits bound), each
+  step's gradients at 1e-6, parameters at rtol 3e-5 / atol 3e-6
+  (tests/test_compiled_fit.py's Adam bound) plus what Adam makes of the
+  measured gradient gaps (see _adam_gap_bound);
 - the Trainer's rules: ``grad_req='write'`` over two rounds, a frozen
-  parameter, ``step(batch_size)`` rescaling, state files.
+  parameter, ``step(batch_size)`` rescaling, a step with no new backward,
+  state files.
 """
 import os
 import sys
@@ -47,16 +49,9 @@ LOSS_BOUND = 1e-6
 OPT_RTOL, OPT_ATOL = 1e-6, 1e-7
 LM_LOSS_BOUND = 1e-4
 LM_RTOL, LM_ATOL = 3e-5, 3e-6
-# Adam's first update of an element is lr * g / (|g| + eps / sqrt(1 - b2)):
-# its slope at g = 0 is lr * sqrt(1 - b2) / eps.  The two packages' fp32
-# gradients lie about equally far from an fp64 gradient
-# (test_lm_fp32_gradients_are_as_accurate_as_jax) and, where an element's
-# gradient cancels to ~1e-8, a few 1e-9 apart.  At the default eps 1e-8
-# that slope (9.5e3 at lr 3e-3) turns this into ~1e-5, past LM_ATOL (at
-# seed 7 one element of 61k lands 2.5e-5 apart); at 1e-6 it is 95.  The
-# default eps is held to JAX in the optimizer tests above, on identical
-# gradients.
-LM_EPSILON = 1e-6
+# each package's fp32 LM gradients lie within 1e-6 of an fp64 gradient
+# (test_lm_fp32_gradients_are_as_accurate_as_jax)
+LM_GRAD_ATOL = 1e-6
 VOCAB, DIM, HEADS, DEPTH, MAX_LEN = 16, 64, 4, 2, 64
 
 
@@ -261,14 +256,53 @@ def _lm_pair(seed=7):
     return jnet, tnet
 
 
+def _adam_gap_bound(grads, gaps, lr, beta1=0.9, beta2=0.999, eps=1e-8):
+    """Per element, how far apart MXNet's Adam may leave two copies of the
+    same weights when their gradients at step t are ``grads[t]`` and lie at
+    most ``gaps[t]`` apart.  The update is ``lr_t * m / (sqrt(v) + eps)``;
+    the bound follows the momenta's and the variances' gaps and the worst
+    case of that quotient, step by step.  Where a gradient cancels to ~0
+    the quotient's slope is ``1 / eps``: at step 1, ``lr * sqrt(1 - beta2)
+    / eps`` = 9.5e3 at lr 3e-3, so rounding gaps of a few 1e-9 there
+    become ~1e-5 in the weights.  Where the gradient is large the slope is
+    ~``lr / |g|`` and the bound is tight."""
+    bound = m = v = m_gap = v_gap = 0.0
+    for t, (g, gap) in enumerate(zip(grads, gaps), start=1):
+        g = np.abs(g.astype(np.float64))
+        m = beta1 * m + (1 - beta1) * g
+        v = beta2 * v + (1 - beta2) * g * g
+        m_gap = beta1 * m_gap + (1 - beta1) * gap
+        v_gap = beta2 * v_gap + (1 - beta2) * (2 * g * gap + gap * gap)
+        root = np.sqrt(v)
+        # sqrt(v + d) - sqrt(v) <= min(d / (2 sqrt(v)), sqrt(d))
+        root_gap = np.minimum(np.sqrt(v_gap), v_gap / np.maximum(
+            2 * root, 1e-300))
+        low = np.maximum(root - root_gap, 0.0) + eps
+        lr_t = lr * np.sqrt(1 - beta2 ** t) / (1 - beta1 ** t)
+        bound = bound + lr_t * (m_gap / low
+                                + m * root_gap / ((root + eps) * low))
+    return bound
+
+
 def test_lm_training_matches_jax_trainer():
+    """The example's Adam (default epsilon 1e-8).  Each step's gradients
+    agree to LM_GRAD_ATOL; the weights after three steps agree to
+    LM_RTOL/LM_ATOL plus what Adam makes of the measured gradient gaps
+    (_adam_gap_bound)."""
     jnet, tnet = _lm_pair()
     assert all(p.requires_grad for p in tnet.parameters())
-    adam = {"learning_rate": 3e-3, "epsilon": LM_EPSILON}
-    jtrainer = mx.gluon.Trainer(jnet.collect_params(), "adam", dict(adam))
-    ttrainer = gluon.Trainer(tnet.named_parameters(), "adam", dict(adam))
+    lr = 3e-3
+    jtrainer = mx.gluon.Trainer(jnet.collect_params(), "adam",
+                                {"learning_rate": lr})
+    ttrainer = gluon.Trainer(tnet.named_parameters(), "adam",
+                             {"learning_rate": lr})
     jce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     tce = SoftmaxCrossEntropyLoss()
+    tparams = dict(tnet.named_parameters())
+    names = {name: mxnet_to_torch_name(tnet, name)
+             for name in jnet.collect_params()}
+    grads = {name: [] for name in names}
+    grad_gaps = {name: [] for name in names}
     B, T = 4, 64
     pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
     rng_j, rng_t = np.random.RandomState(0), np.random.RandomState(0)
@@ -283,21 +317,30 @@ def test_lm_training_matches_jax_trainer():
                         mx.nd.array(y.astype(np.float32)).reshape((-1,))
                         ).mean()
         jloss.backward()
-        jtrainer.step(1)
         with autograd.record():
             logits = tnet(torch.from_numpy(x), torch.from_numpy(pos))
             tloss = tce(logits.reshape(-1, VOCAB),
                         torch.from_numpy(y.astype(np.float32)).reshape(-1)
                         ).mean()
         tloss.backward()
-        ttrainer.step(1)
         assert abs(tloss.item() - float(jloss.asnumpy().sum())) \
             < LM_LOSS_BOUND, step
-    tparams = dict(tnet.named_parameters())
+        for name, p in jnet.collect_params().items():
+            gap = np.abs(tparams[names[name]].grad.numpy().astype(np.float64)
+                         - p.grad().asnumpy())
+            assert gap.max() < LM_GRAD_ATOL, (step, name, gap.max())
+            grads[name].append(p.grad().asnumpy())
+            grad_gaps[name].append(gap)
+        jtrainer.step(1)
+        ttrainer.step(1)
     for name, p in jnet.collect_params().items():
-        np.testing.assert_allclose(
-            tparams[mxnet_to_torch_name(tnet, name)].detach().numpy(),
-            p.data().asnumpy(), rtol=LM_RTOL, atol=LM_ATOL, err_msg=name)
+        want = p.data().asnumpy()
+        got = tparams[names[name]].detach().numpy()
+        bound = (LM_RTOL * np.abs(want) + LM_ATOL
+                 + _adam_gap_bound(grads[name], grad_gaps[name], lr))
+        worst = np.argmax(np.abs(got - want) - bound)
+        assert np.all(np.abs(got - want) <= bound), (
+            name, np.abs(got - want).flat[worst], bound.flat[worst])
 
 
 # ---------------------------------------------------------------- (e)
@@ -356,8 +399,49 @@ def test_trainer_rounds_match_jax_write_rule_frozen_param_and_rescale():
             np.testing.assert_allclose(tp.detach().numpy(),
                                        jp.data().asnumpy(), rtol=OPT_RTOL,
                                        atol=OPT_ATOL)
-            assert tp.grad is None
+            if tp is frozen_t:
+                assert tp.grad is None
+            else:   # the gradient written by this round's backward
+                np.testing.assert_allclose(tp.grad.numpy(),
+                                           jp.grad().asnumpy(),
+                                           rtol=OPT_RTOL, atol=OPT_ATOL)
     assert torch.equal(frozen_t, frozen_value)
+
+
+def test_trainer_steps_without_backward_match_jax():
+    """A step before any backward applies a zero gradient (weight decay
+    and momentum still move the weights); a step with no backward since
+    the last one applies the held gradient again, as the JAX Trainer
+    does.  ``torch.autograd.grad`` leaves the held gradient alone."""
+    rng = np.random.RandomState(9)
+    jnet, tnet = _dense_pair(rng)
+    opt = {"learning_rate": 0.1, "momentum": 0.9, "wd": 0.01}
+    jtrainer = mx.gluon.Trainer(jnet.collect_params(), "sgd", dict(opt))
+    ttrainer = gluon.Trainer(tnet.named_parameters(), "sgd", dict(opt))
+    x = rng.normal(0, 1, (4, 5)).astype(np.float32)
+    y = rng.randint(0, 3, 4).astype(np.float32)
+
+    def agree():
+        for jp, tp in zip(jnet.collect_params().values(),
+                          tnet.parameters()):
+            np.testing.assert_allclose(tp.detach().numpy(),
+                                       jp.data().asnumpy(), rtol=OPT_RTOL,
+                                       atol=OPT_ATOL)
+
+    jtrainer.step(4)
+    ttrainer.step(4)
+    agree()
+    _round_jax(jnet, jtrainer, x, y, batch_size=4)
+    _round_port(tnet, ttrainer, x, y, batch_size=4)
+    held = [p.grad.clone() for p in tnet.parameters()]
+    torch.autograd.grad(SoftmaxCrossEntropyLoss()(tnet(_t(x)), _t(y)).sum(),
+                        list(tnet.parameters()))
+    assert all(torch.equal(p.grad, h) for p, h in zip(tnet.parameters(),
+                                                       held))
+    for _ in range(2):
+        jtrainer.step(4)
+        ttrainer.step(4)
+        agree()
 
 
 def test_trainer_states_round_trip(tmp_path):
@@ -383,14 +467,9 @@ def test_trainer_states_round_trip(tmp_path):
         assert torch.equal(a, b), name
 
 
-def test_trainer_refuses_stale_grads_dist_kvstore_and_non_parameters():
+def test_trainer_refuses_dist_kvstore_and_non_parameters():
     _, tnet = _dense_pair(np.random.RandomState(8))
     trainer = gluon.Trainer(list(tnet.parameters()), "sgd")
-    with pytest.raises(MXNetError, match="ignore_stale_grad"):
-        trainer.step(1)
-    before = [p.detach().clone() for p in tnet.parameters()]
-    trainer.step(1, ignore_stale_grad=True)
-    assert all(torch.equal(a, b) for a, b in zip(before, tnet.parameters()))
     with pytest.raises(MXNetError, match="not ported"):
         gluon.Trainer(tnet.parameters(), "sgd", kvstore="dist_sync")
     with pytest.raises(ValueError, match="Parameters"):
@@ -425,8 +504,8 @@ def test_main_lowers_the_loss_on_the_cpu(capsys):
 
 
 def test_lm_fp32_gradients_are_as_accurate_as_jax(monkeypatch):
-    """Why LM_EPSILON: the port's fp32 gradients of the example LM are as
-    close to an fp64 gradient as the JAX package's are, so the ~1e-9
+    """Why LM_GRAD_ATOL: the port's fp32 gradients of the example LM are
+    as close to an fp64 gradient as the JAX package's are, so the ~1e-9
     disagreements that Adam's default epsilon magnifies are rounding on
     both sides, not a fault of either."""
     jnet, tnet = _lm_pair()
