@@ -7,6 +7,13 @@ TransformerLM (vocab 32768, dim 768, 12 layers, 12 heads, T up to 1024;
 random weights from a seed) down both of the port's paths: served through
 ``serving.ModelServer``, and trained with ``gluon.Trainer`` and Adam.  Each
 path must go through the kernel and agree with the same model on the CPU.
+Then it trains ResNet-50 v1 at full width (224 x 224, batch 32, 1000
+classes, fp32) through the example's ``fit_gluon`` loop
+(``models/image_classification.py``: SGD, momentum 0.9, wd 1e-4) in both
+layouts, profiles a step and holds a small copy against the CPU.  That path
+launches no hand kernel: the JAX package's convolution, pooling and
+BatchNorm are XLA ops, not Pallas kernels, and the port runs them as
+PyTorch's (cuDNN) ops.
 
     python3 chip_smoke.py
 
@@ -45,6 +52,24 @@ VS_CPU = (2, 2, 256, 3)
 # H100 read 4.9e-4 in fp32 (pos.weight; median leaf 8.5e-7) and 4.8e-3
 # with TF32 GEMMs (the phase's control)
 GRAD_REL_BOUND = 1e-3
+# ResNet-50 v1 training at the example's defaults (common.py): batch, image
+# side, steps (one warm, the rest timed)
+RESNET_B, RESNET_SIZE, RESNET_STEPS = 32, 224, 6
+# card vs CPU, the same Xavier weights: (batch, image side, steps).  Its
+# last stage normalizes 8 values a channel, and ResNet-50 v1's fp32 step is
+# ill-conditioned there: two fp32 CPU implementations' step-1 gradients lie
+# up to 3% of a leaf's norm apart (tests/test_torch_resnet.py), and the
+# example's lr 0.1 takes the loss from 7.5 to ~120 in one step.  Bounds
+# between an H100's fp32 reading and its TF32 control (cuDNN and GEMMs):
+# step-1 logits, max abs: 3.5e-4 in fp32, 0.32 with TF32
+RESNET_LOGIT_BOUND = 2e-3
+# step-1 gradient, worst leaf ||a - b|| / ||b||: 0.023 in fp32, 0.88 TF32
+RESNET_GRAD_REL_BOUND = 0.1
+# parameters and running stats after 3 steps, the median array's
+# ||a - b|| / ||b||: 0.14 in fp32, 0.59 TF32 (the worst array, 2.1 and
+# 1.2, does not tell them apart: the steps after the first amplify)
+RESNET_AFTER_MEDIAN_BOUND = 0.3
+RESNET_VS_CPU = (2, 64, 3)
 
 # published peaks by card (NVIDIA data sheets, dense): fp32 on CUDA cores
 # and TF32 on tensor cores in FLOP/s, memory bandwidth in bytes/s
@@ -675,7 +700,345 @@ def train_vs_cpu(cuda_ops, dev):
           launches=launches, param_max_abs_diff_after=param_err)
 
 
+def resnet_args(batch_size):
+    """The example's options at their defaults (common.py add_fit_args)."""
+    import argparse
+
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    return ic.add_fit_args(argparse.ArgumentParser()).parse_args(
+        ["--batch-size", str(batch_size)])
+
+
+def new_resnet(dev, seed, layout="NCHW"):
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.get_model("resnet50_v1", layout=layout, device=dev)
+    return initializer.initialize(
+        net, initializer.Xavier(),
+        generator=torch.Generator().manual_seed(seed))
+
+
+def resnet_model(dev, card):
+    """Phase: resnet50_v1 built on the card and Xavier-initialized."""
+    t0 = time.time()
+    net = new_resnet(dev, 0)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    params = list(net.parameters())
+    trainable = [p for p in params if p.requires_grad]
+    arrays = len(net.state_dict())
+    if (arrays, len(trainable)) != (299, 193):
+        fail("resnet50_v1 has %d arrays, %d trainable; the JAX model has "
+             "299 and 193" % (arrays, len(trainable)))
+    phase("resnet_model", network="resnet50_v1", arrays=arrays,
+          trainable_arrays=len(trainable),
+          params=sum(p.numel() for p in params),
+          trainable_params=sum(p.numel() for p in trainable),
+          buffers=sum(b.numel() for b in net.buffers()), build_s=build_s,
+          card='"%s"' % card)
+
+
+def resnet_train(dev, card):
+    """Phase: resnet50_v1 trained through the example's entry point
+    (``image_classification.main``, one epoch of the synthetic set), then,
+    in each layout, RESNET_STEPS steps of its loop (``train_step``) timed
+    by CUDA events: one warm, the median of the rest."""
+    from mxnet_tpu_torch import gluon, metric
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    t0 = time.time()
+    net = ic.main(["--network", "resnet50_v1", "--batch-size", str(RESNET_B),
+                   "--num-epochs", "1"])
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    if not all(torch.isfinite(t).all() for t in net.state_dict().values()):
+        fail("fit_gluon left non-finite weights")
+    moved = sum(not torch.equal(b, torch.ones_like(b)) for n, b in
+                net.named_buffers() if n.endswith("running_var"))
+    if moved != 53:
+        fail("fit_gluon moved %d of 53 running variances" % moved)
+    phase("resnet_fit", network="resnet50_v1", batch=RESNET_B,
+          steps=-(-max(10 * RESNET_B, 320) // RESNET_B),
+          seconds=fit_s, running_vars_moved=moved, card='"%s"' % card)
+    del net
+
+    args = resnet_args(RESNET_B)
+    batches = ic.get_synthetic_iter(
+        args, (3, RESNET_SIZE, RESNET_SIZE), dev)[:RESNET_STEPS]
+    for layout in ("NCHW", "NHWC"):
+        if layout == "NHWC":
+            batches = [(x.permute(0, 2, 3, 1).contiguous(), y)
+                       for x, y in batches]
+        net = new_resnet(dev, 0, layout)
+        trainer = gluon.Trainer(net.named_parameters(), args.optimizer,
+                                {"learning_rate": args.lr,
+                                 "momentum": args.mom, "wd": args.wd},
+                                kvstore=args.kv_store)
+        ce, acc = SoftmaxCrossEntropyLoss(), metric.Accuracy()
+        stats = [b.clone() for b in net.buffers()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_ms = [], []
+        for x, y in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = ic.train_step(net, trainer, ce, acc, x, y, RESNET_B)
+            end.record()
+            torch.cuda.synchronize()
+            losses.append(loss.mean().item())
+            step_ms.append(start.elapsed_time(end))
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if not all(np.isfinite(losses)):
+            fail("%s training losses not finite: %s" % (layout, losses))
+        moved = sum(not torch.equal(a, b)
+                    for a, b in zip(stats, net.buffers()))
+        if moved != len(stats):
+            fail("%s: %d of %d running statistics moved"
+                 % (layout, moved, len(stats)))
+        median_ms = float(np.median(step_ms[1:]))
+        phase("resnet_train", layout=layout, network="resnet50_v1",
+              batch=(RESNET_B, 3, RESNET_SIZE, RESNET_SIZE),
+              steps=len(batches), losses=json.dumps(losses),
+              accuracy=acc.get()[1], step_ms=json.dumps(step_ms),
+              median_step_ms=median_ms,
+              imgs_per_s=RESNET_B / (median_ms / 1e3),
+              peak_memory_gb=peak_gb, running_stats_moved=moved,
+              card='"%s"' % card)
+        if layout == "NCHW":
+            state = (net, trainer, ce, batches[-1])
+        else:
+            del net, trainer
+    return state
+
+
+# the profile's categories, by the names of the ranges and ops a kernel
+# runs under, outermost first: the forward's ranges are the layers' class
+# names, the backward's ops the autograd nodes' names.  The first category
+# that one of them matches wins
+RESNET_CATEGORIES = (
+    ("update", ("trainer.step",)),
+    ("loss", ("loss", "logsoftmax", "gather", "neg", "ones_like")),
+    ("convolution", ("conv",)),
+    ("batchnorm", ("batchnorm", "batch_norm")),
+    ("pooling", ("pool", "mean")),
+    ("fc_gemm", ("dense", "addmm", "mmbackward")),
+    ("relu_add", ("activation", "relu", "threshold", "aten::add",
+                  "addbackward")),
+    ("copies", ("copy", "accumulategrad")),
+)
+
+
+def resnet_category(event, kernel_name):
+    """The category of a kernel ``event`` launched, and the outermost name
+    above it."""
+    chain = []
+    while event is not None:
+        chain.append(event.name)
+        event = event.cpu_parent
+    if kernel_name.lower().startswith(("memcpy", "memset")):
+        return "copies", chain[-1]
+    for name in reversed(chain):
+        for category, keys in RESNET_CATEGORIES:
+            if any(k in name.lower() for k in keys):
+                return category, chain[-1]
+    return "other", chain[-1]
+
+
+def layer_ranges(net):
+    """Hooks that put each layer's forward in a profiler range named for
+    its class (the backward is named by autograd's nodes); returns the
+    handles."""
+    from torch.profiler import record_function
+
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv, _Pooling
+
+    open_ranges = {}
+
+    def enter(module, args):
+        open_ranges[id(module)] = record_function(type(module).__name__)
+        open_ranges[id(module)].__enter__()
+
+    def leave(module, args, out):
+        open_ranges.pop(id(module)).__exit__(None, None, None)
+
+    handles = []
+    for m in net.modules():
+        if isinstance(m, (_Conv, _Pooling, gnn.BatchNorm, gnn.Dense,
+                          gnn.Activation)):
+            handles += [m.register_forward_pre_hook(enter),
+                        m.register_forward_hook(leave)]
+    return handles
+
+
+def resnet_profile(net, trainer, ce, batch, card):
+    """Phase: where one resnet50_v1 training step's time goes.  CUDA
+    events around its forward (with the loss), backward and update, and
+    the host's clock around the update's launches; then the same step
+    under torch.profiler, its device time by category."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mxnet_tpu_torch import autograd
+
+    x, y = batch
+
+    def step(ev=None):
+        if ev:
+            ev[0].record()
+        with autograd.record():
+            out = net(x)
+            with record_function("loss"):
+                loss = ce(out, y)
+        if ev:
+            ev[1].record()
+        loss.backward(torch.ones_like(loss))
+        if ev:
+            ev[2].record()
+        t0 = time.perf_counter()
+        with record_function("trainer.step"):
+            trainer.step(RESNET_B)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if ev:
+            ev[3].record()
+        return host_ms
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    update_host_ms = step(ev)
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms, upd_ms = (ev[i].elapsed_time(ev[i + 1])
+                              for i in range(3))
+    handles = layer_ranges(net)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    split, count, names, other = {}, {}, {}, {}
+    fold_ms = 0.0   # BatchNorm's second pass for its running statistics
+    for event in prof.events():
+        for k in event.kernels:
+            if event.name == "aten::var_mean":
+                fold_ms += k.duration / 1e3
+            cat, top = resnet_category(event, k.name)
+            split[cat] = split.get(cat, 0.0) + k.duration / 1e3
+            count[cat] = count.get(cat, 0) + 1
+            names[k.name] = names.get(k.name, 0.0) + k.duration / 1e3
+            if cat == "other":
+                other[top] = other.get(top, 0.0) + k.duration / 1e3
+    device_ms = sum(split.values())
+    if not device_ms:
+        fail("the profiler saw no device time")
+    top = sorted(names.items(), key=lambda kv: kv[1], reverse=True)[:10]
+    phase("resnet_profile", layout="NCHW", batch=RESNET_B,
+          forward_ms=fwd_ms, backward_ms=bwd_ms, update_ms=upd_ms,
+          step_ms=fwd_ms + bwd_ms + upd_ms, update_host_ms=update_host_ms,
+          update_device_ms=split.get("update", 0.0),
+          update_kernels=count.get("update", 0), device_ms=device_ms,
+          split_ms=json.dumps(split), kernels=json.dumps(count),
+          batchnorm_fold_stats_ms=fold_ms,
+          other_ms_by_op=json.dumps(other), card='"%s"' % card,
+          top_device_ms=json.dumps([[n[:70], ms] for n, ms in top]))
+
+
+def without_conv_biases(tensors):
+    """``tensors`` but for the convolutions' biases: a BatchNorm follows
+    each, so their exact gradient is 0 and they hold rounding noise."""
+    return {n: t for n, t in tensors.items()
+            if not (n.endswith(".bias") and not n.startswith("output."))}
+
+
+def resnet_vs_cpu(dev):
+    """Phase: resnet50_v1 with the same Xavier weights trained on the card
+    and on the CPU: RESNET_VS_CPU's batch and steps of the example's loop
+    on the synthetic set.  Holds the step-1 logits, each leaf's step-1
+    gradient and the median of the parameters' and running statistics'
+    gaps after the last step.  A control runs the same steps on the card with TF32 convolutions
+    and GEMMs: the gaps a fault of that size would leave."""
+    from mxnet_tpu_torch import gluon, metric
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    B, side, steps = RESNET_VS_CPU
+    args = resnet_args(B)
+    batches = ic.get_synthetic_iter(args, (3, side, side), "cpu")[:steps]
+    start = new_resnet("cpu", 1).state_dict()
+
+    def run(device):
+        net = new_resnet(device, 1)
+        net.load_state_dict(start)
+        trainer = gluon.Trainer(net.named_parameters(), "sgd",
+                                {"learning_rate": args.lr,
+                                 "momentum": args.mom, "wd": args.wd})
+        logits = []
+        hook = net.register_forward_hook(
+            lambda m, i, o: logits.append(o.detach().cpu()))
+        losses, grads = [], None
+        for x, y in batches:
+            loss = ic.train_step(net, trainer, SoftmaxCrossEntropyLoss(),
+                                 metric.Accuracy(), x.to(device),
+                                 y.to(device), B)
+            losses.append(loss.mean().item())
+            if grads is None:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in net.named_parameters()
+                         if p.requires_grad}
+        hook.remove()
+        return logits[0], losses, grads, {
+            n: t.detach().cpu() for n, t in net.state_dict().items()}
+
+    want = run("cpu")
+    readings = {}
+    for label, tf32 in (("fp32", False), ("tf32_control", True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            got = run(dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        grad_rel = leaf_rel_errs(without_conv_biases(got[2]), want[2])
+        after_rel = leaf_rel_errs(without_conv_biases(got[3]), want[3])
+        worst_grad = max(grad_rel, key=grad_rel.get)
+        worst_after = max(after_rel, key=after_rel.get)
+        readings[label] = (
+            (got[0] - want[0]).abs().max().item(), grad_rel[worst_grad],
+            float(np.median(list(after_rel.values()))))
+        phase("resnet_vs_cpu", run=label, batch=(B, 3, side, side),
+              steps=steps, losses=json.dumps(list(zip(got[1], want[1]))),
+              step1_logits_max_abs_err=readings[label][0],
+              its_max_abs_logit=want[0].abs().max().item(),
+              step1_grad_max_rel_err=grad_rel[worst_grad],
+              its_leaf=worst_grad,
+              median_leaf_rel_err=float(np.median(list(grad_rel.values()))),
+              after_max_rel_err=after_rel[worst_after],
+              after_leaf=worst_after,
+              after_median_rel_err=float(np.median(list(
+                  after_rel.values()))),
+              logit_bound=RESNET_LOGIT_BOUND,
+              grad_rel_bound=RESNET_GRAD_REL_BOUND,
+              after_median_bound=RESNET_AFTER_MEDIAN_BOUND)
+    logit_err, grad_err, after_err = readings["fp32"]
+    if not logit_err <= RESNET_LOGIT_BOUND:
+        fail("resnet step-1 logits on the card are %.3g from the CPU's; "
+             "bound %g" % (logit_err, RESNET_LOGIT_BOUND))
+    if not grad_err <= RESNET_GRAD_REL_BOUND:
+        fail("resnet step-1 gradient %.3g from the CPU's, relative to its "
+             "norm; bound %g" % (grad_err, RESNET_GRAD_REL_BOUND))
+    if not after_err <= RESNET_AFTER_MEDIAN_BOUND:
+        fail("resnet weights and running stats after %d steps: the median "
+             "array %.3g from the CPU's, relative; bound %g"
+             % (steps, after_err, RESNET_AFTER_MEDIAN_BOUND))
+
+
 def main():
+    t0 = time.time()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the GPU only")
     from mxnet_tpu_torch import _kernels
@@ -692,7 +1055,8 @@ def main():
     phase("device", name='"%s"' % name, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda,
           matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+          cudnn_benchmark=torch.backends.cudnn.benchmark)
     print(smi, flush=True)
 
     build_report(_kernels)
@@ -705,6 +1069,16 @@ def main():
     del state
     train_vs_cpu(cuda_ops, dev)
 
+    resnet_model(dev, smi)
+    cuda_ops.flash_attention.launches = 0
+    state = resnet_train(dev, smi)
+    resnet_profile(*state, smi)
+    del state
+    resnet_vs_cpu(dev)
+    if cuda_ops.flash_attention.launches:
+        fail("the ResNet path launched flash_attention %d times"
+             % cuda_ops.flash_attention.launches)
+
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
@@ -712,6 +1086,7 @@ def main():
               "launches_serve": launches_serve,
               "launches_train": launches_train}
     kernel.update(numbers)
+    phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ torch's autograd is the tape, so only the two thread-local flags remain:
   ``loss.backward()`` walks (torch's grad mode on), inside :func:`pause`
   they do not (grad mode off).  Each scope puts torch's grad mode back as
   it found it on exit;
-- *training*: layers that act differently in training (dropout, batch
-  norm) read :func:`is_training`.  None of the ported layers does yet.
+- *training*: layers that act differently in training read
+  :func:`is_training`; of the ported layers, ``BatchNorm`` does (batch
+  statistics and their running fold in training, the running statistics
+  otherwise).
 
 Gradients then land in each parameter's ``.grad``, where ``gluon.Trainer``
 reads them; the Trainer makes each backward overwrite them, as Gluon's

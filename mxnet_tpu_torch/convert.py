@@ -2,11 +2,19 @@
 
 ``load_mxnet_params(module, named_arrays)`` takes the JAX block's
 ``{name: p.data().asnumpy() for name, p in block.collect_params().items()}``
-and fills the matching port module.  Gluon names are auto-numbered
-(``transformerlm0_block1_causalselfattention0_dense0_weight``); the model's
-own prefix is stripped and the rest is mapped by structure onto the port's
-parameter names (``blocks.1.attn.qkv.weight``).  A missing, extra or
-wrongly shaped array raises, naming it.
+and fills the matching port module.  Gluon names are auto-numbered.
+
+- TransformerLM (``transformerlm0_block1_causalselfattention0_dense0_weight``):
+  the model's own prefix is stripped and the rest is mapped by structure
+  onto the port's parameter names (``blocks.1.attn.qkv.weight``).
+- ResNet v1/v2: names are numbered per process and per stage
+  (``resnetv10_stage1_conv2d0_bias``), which no fixed rule follows.  The
+  port's modules list their arrays in ``state_dict()`` (parameters and
+  BatchNorm buffers) in the order Gluon builds them, so the two are paired
+  by position (:func:`mxnet_pairs`), each pair's kind (weight, bias, gamma,
+  beta, running_mean, running_var) and shape checked.
+
+A missing, extra or wrongly shaped array raises, naming it.
 """
 from __future__ import annotations
 
@@ -16,9 +24,10 @@ import numpy as np
 import torch
 
 from .base import MXNetError
+from .gluon.model_zoo.vision.resnet import ResNetV1, ResNetV2
 from .models.transformer_lm import TransformerLM
 
-__all__ = ["load_mxnet_params", "mxnet_to_torch_name"]
+__all__ = ["load_mxnet_params", "mxnet_to_torch_name", "mxnet_pairs"]
 
 # Gluon name (model prefix stripped) <-> port parameter name, per model.
 # ``{i}`` is a layer index, ``{p}`` a parameter kind (weight, bias, ...).
@@ -39,6 +48,10 @@ _RULES = {
     ],
 }
 _PREFIX = {TransformerLM: re.compile(r"^transformerlm\d+_")}
+# models paired by position, and their Gluon prefix
+_IN_ORDER = {ResNetV1: re.compile(r"^resnetv1\d+_"),
+             ResNetV2: re.compile(r"^resnetv2\d+_")}
+_KINDS = ("running_mean", "running_var", "weight", "bias", "gamma", "beta")
 
 
 def _pattern(template):
@@ -74,10 +87,56 @@ def mxnet_to_torch_name(module, name):
     return None if m is None else _translate(model, name[m.end():], 0, 1)
 
 
+def _kind(name):
+    return next((k for k in _KINDS if name.endswith(k)), None)
+
+
+def mxnet_pairs(module, named_arrays):
+    """``{Gluon name: port state_dict key}`` for a model paired by position
+    (ResNet v1/v2): the i-th of ``named_arrays`` (in ``collect_params()``
+    order) with the i-th entry of ``module.state_dict()``.  Raises, naming
+    both sides, where a pair's kinds or shapes differ or one side runs
+    out."""
+    prefix = _IN_ORDER.get(type(module))
+    if prefix is None:
+        raise MXNetError("%s is not paired by position; known: %s"
+                         % (type(module).__name__,
+                            sorted(m.__name__ for m in _IN_ORDER)))
+    targets = module.state_dict(keep_vars=True)
+    names, keys = list(named_arrays), list(targets)
+
+    def short(name):   # the Gluon name without the model's prefix
+        m = prefix.match(name)
+        return name if m is None else name[m.end():]
+
+    for i, (name, key) in enumerate(zip(names, keys)):
+        shape = tuple(np.shape(named_arrays[name]))
+        want = tuple(targets[key].shape)
+        if _kind(name) != key.rsplit(".", 1)[-1] or shape != want:
+            raise MXNetError(
+                "array %d, %r with shape %s, does not pair with %r, which "
+                "needs %s: an array is missing, extra or misshaped near "
+                "here" % (i, short(name), shape, key, want))
+    if len(names) > len(keys):
+        raise MXNetError("extra arrays %s: %s has no entry left for them"
+                         % ([short(n) for n in names[len(keys):]],
+                            type(module).__name__))
+    if len(keys) > len(names):
+        raise MXNetError("missing arrays for %s of %s"
+                         % (keys[len(names):], type(module).__name__))
+    return dict(zip(names, keys))
+
+
 def load_mxnet_params(module, named_arrays):
     """Copy ``named_arrays`` (Gluon name -> numpy array) into ``module``'s
-    parameters, on the parameters' own device and dtype.  Every parameter
-    must be filled exactly once, with the same shape."""
+    parameters (and a ResNet's BatchNorm buffers), on their own device and
+    dtype.  Every one must be filled exactly once, with the same shape."""
+    if type(module) in _IN_ORDER:
+        targets = module.state_dict(keep_vars=True)
+        with torch.no_grad():
+            for name, key in mxnet_pairs(module, named_arrays).items():
+                targets[key].copy_(torch.tensor(named_arrays[name]))
+        return module
     params = dict(module.named_parameters())
     filled = {}
     for name, array in named_arrays.items():

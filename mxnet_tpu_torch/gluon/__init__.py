@@ -1,6 +1,6 @@
 """Gluon (counterpart of ``mxnet_tpu/gluon``): layers as ``nn.Module``s,
-losses and the Trainer."""
-from . import loss, nn
+losses, the Trainer and the model zoo."""
+from . import loss, model_zoo, nn
 from .trainer import Trainer
 
-__all__ = ["nn", "loss", "Trainer"]
+__all__ = ["nn", "loss", "model_zoo", "Trainer"]

@@ -1,12 +1,13 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``).
 
-Only the layers the TransformerLM uses: :class:`Dense`, :class:`Embedding`,
-:class:`LayerNorm` and :class:`HybridSequential`.  Parameters keep the JAX
-package's shapes and names (Dense weight ``[units, in_units]``, LayerNorm
-``gamma``/``beta``), so weights carry across unchanged.  Parameters are
-allocated uninitialized in fp32 on ``device`` (default ``cuda:0``) and take
-gradients; fill them with ``initializer.initialize`` or
-``convert.load_mxnet_params``.
+Only the layers the ported models use: :class:`Dense`, :class:`Embedding`,
+:class:`LayerNorm`, :class:`BatchNorm`, :class:`Flatten` and
+:class:`HybridSequential`.  Parameters keep the JAX package's shapes and
+names (Dense weight ``[units, in_units]``, LayerNorm and BatchNorm
+``gamma``/``beta``, BatchNorm's ``running_mean``/``running_var``), so
+weights carry across unchanged.  Parameters are allocated uninitialized in
+fp32 on ``device`` (default ``cuda:0``) and take gradients; fill them with
+``initializer.initialize`` or ``convert.load_mxnet_params``.
 """
 from __future__ import annotations
 
@@ -14,9 +15,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import autograd
 from ...context import resolve_device
 
-__all__ = ["Dense", "Embedding", "LayerNorm", "HybridSequential"]
+__all__ = ["Dense", "Embedding", "LayerNorm", "BatchNorm", "Flatten",
+           "HybridSequential"]
 
 
 def _param(shape, device):
@@ -71,6 +74,75 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, (x.shape[-1],), self.gamma, self.beta,
                             1e-5)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalization over ``axis`` (1, or -1 inside
+    ``nn.channels_last()``), as the JAX layer (``basic_layers.py:164-248``)
+    and op (``mxnet_tpu/ops/nn_ops.py:304-350``) compute it.
+
+    Batch statistics are used while ``autograd.is_training()`` and not
+    ``use_global_stats`` (``nn.Module.training`` plays no part); the running
+    statistics otherwise.  With batch statistics the running ones are folded
+    as ``running * momentum + batch * (1 - momentum)``, with the *biased*
+    batch variance: not torch's own update, whose variance is unbiased and
+    whose momentum is ``1 - momentum``.  ``scale=False`` normalizes with a
+    gamma of ones (the op's ``fix_gamma``); gamma, and beta with
+    ``center=False``, then stay in the parameter list without a gradient
+    (``grad_req='null'``).  The running statistics are buffers, which a
+    ``Trainer`` built from ``named_parameters()`` never sees."""
+
+    def __init__(self, axis=None, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, in_channels=0,
+                 device=None):
+        super().__init__()
+        if not in_channels:
+            raise ValueError("in_channels must be given: the port does not "
+                             "infer shapes from the first batch")
+        if axis is None:
+            from .conv_layers import default_batchnorm_axis
+            axis = default_batchnorm_axis()
+        device = resolve_device(device)
+        self._axis = axis
+        self._momentum = momentum
+        self._eps = epsilon
+        self._fix_gamma = not scale
+        self._use_global_stats = use_global_stats
+        self.gamma = _param((in_channels,), device)
+        self.gamma.requires_grad_(scale)
+        self.beta = _param((in_channels,), device)
+        self.beta.requires_grad_(center)
+        self.register_buffer("running_mean",
+                             torch.zeros(in_channels, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(in_channels, device=device))
+
+    def forward(self, x):
+        axis = self._axis % x.dim()
+        x = x.movedim(axis, 1)   # a view; channels-last memory stays so
+        gamma = torch.ones_like(self.gamma) if self._fix_gamma \
+            else self.gamma
+        if autograd.is_training() and not self._use_global_stats:
+            y = F.batch_norm(x, None, None, gamma, self.beta, training=True,
+                             eps=self._eps)
+            with torch.no_grad():
+                dims = [d for d in range(x.dim()) if d != 1]
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
+                m = self._momentum
+                self.running_mean.copy_(self.running_mean * m
+                                        + mean * (1 - m))
+                self.running_var.copy_(self.running_var * m + var * (1 - m))
+        else:
+            y = F.batch_norm(x, self.running_mean, self.running_var, gamma,
+                             self.beta, training=False, eps=self._eps)
+        return y.movedim(1, axis)
+
+
+class Flatten(nn.Module):
+    """(B, ...) -> (B, -1)."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
 
 
 class HybridSequential(nn.Sequential):

@@ -1,0 +1,429 @@
+"""mxnet_tpu_torch's ResNet model zoo, weight converter and ``fit_gluon``
+loop against the JAX package's.
+
+The JAX model is built with a fixed ``mx.random.seed`` and Xavier, its
+BatchNorm arrays replaced by seeded random values, and its arrays carried
+into the port with ``convert.load_mxnet_params``.
+
+- Forward, outside ``record()`` (running statistics): rtol/atol 1e-4, the
+  bound tests/test_gluon.py pins for one model across layouts.
+- ``fit_gluon``, two SGD steps of ``resnet50_v1`` at the example's defaults
+  (lr 0.1, momentum 0.9, wd 1e-4) on 2 x 3 x 64 x 64 batches of the
+  example's synthetic set, against the JAX ``gluon.Trainer`` loop on the
+  same batches.  ResNet-50 v1's training step is ill-conditioned in fp32
+  at this size: its last stage normalizes 8 values a channel (2 x 2 x 2),
+  and each package's step-1 gradient lies up to 3% of a leaf's norm from an
+  fp64 run of the port (``test_resnet50_fp32_gradients_are_as_accurate_
+  as_jax``; FP64_REL = 0.05 over the worst measured, 0.030; ResNet-18's
+  lies within 1e-5).  So the step-1
+  gradients are held per leaf at GRAD_REL = 2 x FP64_REL of the leaf's
+  norm, plus GRAD_ABS for the conv biases that feed a BatchNorm, whose
+  exact gradient is 0.  SGD is linear in the gradient: the weights and
+  momenta after two steps are held at what the update makes of the
+  measured per-element gradient gaps, plus fp32 rounding.  The running
+  statistics after the second step come from weights the first step put
+  apart, and are held at a quarter of their scale.
+- Training-mode forward of the channel-last model against the
+  channel-first one at 64 x 64: TRAIN_FWD_BOUND, 3x the fp32 logits' gap
+  to fp64 there (3.2e-4 on logits up to 4.8); at 32 x 32 the last stage
+  normalizes 2 values a channel, and an fp32 run's last-stage features lie
+  38% from an fp64 run's.
+"""
+import argparse
+import importlib.util
+import logging
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as mx
+from mxnet_tpu.gluon.model_zoo import vision as jvision
+from mxnet_tpu_torch import MXNetError, autograd, gluon, initializer, metric
+from mxnet_tpu_torch.convert import load_mxnet_params, mxnet_pairs
+from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from mxnet_tpu_torch.gluon.model_zoo import vision
+from mxnet_tpu_torch.models import image_classification as ic
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FWD_RTOL = FWD_ATOL = 1e-4          # tests/test_gluon.py:329
+LOSS_BOUND = 1e-4
+FP64_REL = 0.05     # worst leaf measured: JAX 0.030, port 0.024-0.028
+GRAD_REL, GRAD_ABS = 2 * FP64_REL, 1e-3
+TRAIN_FWD_BOUND = 1e-3
+W_RTOL, W_ATOL = 1e-5, 1e-6
+LR, MOM, WD = 0.1, 0.9, 1e-4        # common.py's defaults
+
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """The CPU training steps here run beside the suite's other workers;
+    two intra-op threads keep them from crowding those workers' timed
+    tests."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _example_common():
+    """example/image-classification/common.py, under a name of its own."""
+    spec = importlib.util.spec_from_file_location(
+        "image_classification_common",
+        os.path.join(REPO, "example", "image-classification", "common.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def jax_model(name, size, seed=0, **kw):
+    """The JAX model, Xavier from ``seed``, with random BatchNorm arrays."""
+    mx.random.seed(seed)
+    net = jvision.get_model(name, **kw)
+    net.initialize(mx.init.Xavier())
+    shape = (1, size, size, 3) if kw.get("layout") == "NHWC" \
+        else (1, 3, size, size)
+    net(mx.nd.zeros(shape))   # finish deferred init
+    rng = np.random.RandomState(seed + 1)
+    for pname, p in net.collect_params().items():
+        if pname.endswith(("gamma", "running_var")):
+            p.set_data(mx.nd.array(rng.uniform(0.5, 1.5, p.shape)))
+        elif pname.endswith(("beta", "running_mean")):
+            p.set_data(mx.nd.array(rng.uniform(-0.5, 0.5, p.shape)))
+    return net
+
+
+def arrays_of(net):
+    return {n: p.data().asnumpy() for n, p in net.collect_params().items()}
+
+
+def port_model(name, arrays, **kw):
+    return load_mxnet_params(vision.get_model(name, device="cpu", **kw),
+                             arrays)
+
+
+@pytest.mark.parametrize("name,classes,layout", [
+    ("resnet18_v1", 10, "NCHW"), ("resnet50_v1", 1000, "NCHW"),
+    ("resnet18_v2", 10, "NCHW"), ("resnet18_v2", 10, "NHWC")])
+def test_forward_matches_jax(name, classes, layout):
+    jnet = jax_model(name, 32, classes=classes, layout=layout)
+    tnet = port_model(name, arrays_of(jnet), classes=classes, layout=layout)
+    x = np.random.RandomState(2).uniform(-1, 1, (2, 3, 32, 32)).astype(
+        np.float32)
+    if layout == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    want = jnet(mx.nd.array(x)).asnumpy()
+    with torch.no_grad():
+        got = tnet(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, classes)
+    assert np.allclose(got, want, rtol=FWD_RTOL, atol=FWD_ATOL), \
+        np.abs(got - want).max()
+
+
+def test_nhwc_matches_nchw_in_the_port():
+    """The channel-last resnet50_v1 with the channel-first one's weights
+    (conv weights permuted to (O, kH, kW, I)) on the permuted input, in
+    inference and in training (batch statistics, their running fold)."""
+    cf = port_model("resnet50_v1", arrays_of(jax_model("resnet50_v1", 32)))
+    cl = vision.resnet50_v1(layout="NHWC", device="cpu")
+    with torch.no_grad():
+        for (name, a), b in zip(cf.state_dict().items(),
+                                cl.state_dict().values()):
+            b.copy_(a.permute(0, 2, 3, 1) if a.dim() == 4 else a)
+    rng = np.random.RandomState(3)
+    for size, training, bound in ((32, False, FWD_ATOL),
+                                  (64, True, TRAIN_FWD_BOUND)):
+        x = torch.from_numpy(rng.uniform(-1, 1, (2, 3, size, size)).astype(
+            np.float32))
+        xl = x.permute(0, 2, 3, 1).contiguous()
+        with torch.no_grad(), autograd.train_mode() if training \
+                else autograd.predict_mode():
+            a, b = cf(x), cl(xl)
+        assert torch.allclose(a, b, rtol=bound, atol=bound), \
+            (a - b).abs().max()
+    for (name, a), b in zip(cf.named_buffers(), cl.buffers()):
+        assert torch.allclose(a, b, rtol=FWD_RTOL, atol=FWD_ATOL), name
+
+
+def test_converter_round_trip_resnet50_v1():
+    """299 arrays: 53 conv weights, 32 conv biases, 53 x 4 BatchNorm
+    arrays and the dense pair; 193 of them train."""
+    arrays = arrays_of(jax_model("resnet50_v1", 32))
+    tnet = port_model("resnet50_v1", arrays)
+    state = tnet.state_dict()
+    assert len(arrays) == len(state) == 299
+    assert sum(p.requires_grad for p in tnet.parameters()) == 193
+    pairs = mxnet_pairs(tnet, arrays)
+    kinds = [n.rsplit("_", 1)[-1] for n in arrays]
+    assert kinds.count("bias") == 33 and kinds.count("weight") == 54
+    for name, key in pairs.items():
+        assert np.array_equal(state[key].numpy(), arrays[name]), name
+
+
+@pytest.mark.parametrize("name,layout", [("resnet18_v1", "NHWC"),
+                                         ("resnet34_v2", "NCHW")])
+def test_converter_carries_each_version_and_layout(name, layout):
+    arrays = arrays_of(jax_model(name, 32, layout=layout))
+    tnet = port_model(name, arrays, layout=layout)
+    state = tnet.state_dict()
+    assert len(state) == len(arrays)
+    for a, (key, b) in zip(arrays.values(), state.items()):
+        assert np.array_equal(a, b.numpy()), key
+
+
+def test_converter_raises_on_missing_extra_or_misshaped_arrays():
+    arrays = arrays_of(jax_model("resnet18_v1", 32))
+    tnet = vision.resnet18_v1(device="cpu")
+    missing = dict(arrays)
+    del missing[next(n for n in arrays
+                     if n.endswith("stage2_batchnorm1_running_mean"))]
+    with pytest.raises(MXNetError, match="stage2_batchnorm1_running_var"
+                                         ".*does not pair"):
+        load_mxnet_params(tnet, missing)
+    last = dict(arrays)
+    del last[next(n for n in reversed(list(arrays)))]
+    with pytest.raises(MXNetError, match=r"missing arrays for \['output"):
+        load_mxnet_params(tnet, last)
+    extra = dict(arrays, resnetv10_dense1_weight=np.zeros((4, 4)))
+    with pytest.raises(MXNetError, match="extra arrays.*dense1_weight"):
+        load_mxnet_params(tnet, extra)
+    misshaped = dict(arrays)
+    conv = next(n for n in arrays if n.endswith("stage3_conv2d0_weight"))
+    misshaped[conv] = misshaped[conv][:, :, :2]
+    with pytest.raises(MXNetError, match="stage3_conv2d0_weight.*shape"):
+        load_mxnet_params(tnet, misshaped)
+    # channel-first arrays into a channel-last model
+    with pytest.raises(MXNetError, match="conv2d0_weight.*does not pair"):
+        load_mxnet_params(vision.resnet18_v1(layout="NHWC", device="cpu"),
+                          arrays)
+
+
+def test_get_model_and_pretrained():
+    net = vision.get_model("ResNet18_V2", classes=7, device="cpu")
+    assert isinstance(net, vision.ResNetV2) and net.output.weight.shape \
+        == (7, 512)
+    with pytest.raises(ValueError, match="(?s)Model vgg16 is not supported. "
+                                         "Available options are.*resnet50_v1"):
+        vision.get_model("vgg16", device="cpu")
+    with pytest.raises(NotImplementedError, match="pretrained"):
+        vision.resnet18_v1(pretrained=True, device="cpu")
+    with pytest.raises(ValueError, match="Invalid number of layers"):
+        vision.get_resnet(1, 20, device="cpu")
+
+
+def test_thumbnail_model_matches_jax():
+    jnet = jax_model("resnet18_v1", 16, classes=10, thumbnail=True)
+    tnet = port_model("resnet18_v1", arrays_of(jnet), classes=10,
+                      thumbnail=True)
+    x = np.random.RandomState(4).uniform(-1, 1, (2, 3, 16, 16)).astype(
+        np.float32)
+    with torch.no_grad():
+        got = tnet(torch.from_numpy(x)).numpy()
+    assert np.allclose(got, jnet(mx.nd.array(x)).asnumpy(), rtol=FWD_RTOL,
+                       atol=FWD_ATOL)
+
+
+def test_constructors_need_cuda_or_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        vision.resnet18_v1()
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        ic.main(["--network", "resnet18_v1", "--num-classes", "10",
+                 "--image-shape", "3,32,32"])
+
+
+def test_xavier_draws_channel_last_weights_in_canonical_order():
+    cf = vision.resnet18_v1(device="cpu")
+    cl = vision.resnet18_v1(layout="NHWC", device="cpu")
+    for net in (cf, cl):
+        initializer.initialize(net, generator=torch.Generator().manual_seed(3))
+    for (name, a), b in zip(cf.state_dict().items(),
+                            cl.state_dict().values()):
+        assert torch.equal(a.permute(0, 2, 3, 1) if a.dim() == 4 else a,
+                           b), name
+    bn = cf.features[1]
+    assert torch.equal(bn.running_var, torch.ones(64))
+    assert torch.equal(bn.running_mean, torch.zeros(64))
+
+
+# ------------------------------------------------------------ training
+
+def _args(**kw):
+    args = dict(network="resnet50_v1", num_classes=1000, num_epochs=1, lr=LR,
+                optimizer="sgd", mom=MOM, wd=WD, batch_size=2,
+                kv_store="device", disp_batches=1)
+    args.update(kw)
+    return argparse.Namespace(**args)
+
+
+def test_synthetic_set_is_the_examples():
+    args = _args(batch_size=12, num_classes=10)
+    batches = ic.get_synthetic_iter(args, (3, 8, 8), "cpu")
+    it = _example_common().get_synthetic_iter(args, (3, 8, 8))
+    X, Y = it.data[0][1], it.label[0][1]
+    assert len(batches) == 27 and X.shape == (320, 3, 8, 8)
+    assert all(x.shape == (12, 3, 8, 8) for x, _ in batches)
+    got = torch.cat([x for x, _ in batches])
+    assert np.array_equal(got[:320].numpy(), X)
+    assert np.array_equal(got[320:].numpy(), X[:4])   # padded from the start
+    assert np.array_equal(torch.cat([y for _, y in batches])[:320].numpy(),
+                          Y)
+
+
+def _fit_pair():
+    """JAX resnet50_v1 and the port's with its weights, and the first two
+    B = 2, 64 x 64 batches of the synthetic set."""
+    jnet = jax_model("resnet50_v1", 64)
+    arrays = arrays_of(jnet)
+    tnet = port_model("resnet50_v1", arrays)
+    batches = ic.get_synthetic_iter(_args(), (3, 64, 64), "cpu")[:2]
+    return jnet, tnet, mxnet_pairs(tnet, arrays), batches
+
+
+def _jax_step(net, x, y, trainer=None):
+    """The JAX loop's forward and backward, and its update if a
+    ``trainer`` is given; returns the per-sample loss."""
+    with mx.autograd.record():
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+            net(mx.nd.array(x.numpy())), mx.nd.array(y.numpy()))
+    loss.backward()
+    if trainer is not None:
+        trainer.step(x.shape[0])
+    return loss.asnumpy()
+
+
+def test_fit_gluon_two_steps_match_jax_trainer(monkeypatch):
+    jnet, tnet, pairs, batches = _fit_pair()
+    jtrainer = mx.gluon.Trainer(jnet.collect_params(), "sgd",
+                                {"learning_rate": LR, "momentum": MOM,
+                                 "wd": WD})
+    # the port runs its own fit_gluon from the carried weights; each step is
+    # recorded as it ends
+    monkeypatch.setattr(initializer, "initialize", lambda net, *a, **k: net)
+    seen, train_step = [], ic.train_step
+
+    def recording_step(net, trainer, loss_fn, metric_, x, y, batch_size):
+        loss = train_step(net, trainer, loss_fn, metric_, x, y, batch_size)
+        seen.append((loss.detach().numpy(), trainer, {
+            n: p.grad.clone() for n, p in net.named_parameters()
+            if p.requires_grad}, {
+            n: p.detach().clone() for n, p in net.named_parameters()}))
+        return loss
+
+    monkeypatch.setattr(ic, "train_step", recording_step)
+    assert ic.fit_gluon(_args(), tnet, batches) is tnet
+    assert len(seen) == 2
+    jparams = jnet.collect_params()
+    trainable = [n for n, p in jparams.items() if p.grad_req != "null"]
+    grad_gaps, jax_weights = [], []
+    for step, (x, y) in enumerate(batches):
+        jloss = _jax_step(jnet, x, y, jtrainer)
+        tloss, _, tgrads, _ = seen[step]
+        if step == 0:
+            assert np.abs(tloss - jloss).max() < LOSS_BOUND
+        else:
+            assert np.all(np.isfinite(tloss))
+        gaps = {}
+        for n in trainable:
+            want = jparams[n].grad().asnumpy()
+            got = tgrads[pairs[n]].numpy()
+            gaps[n] = np.abs(got.astype(np.float64) - want)
+            if step == 0:
+                gap = np.linalg.norm(got - want)
+                assert gap <= GRAD_REL * np.linalg.norm(want) + GRAD_ABS, (
+                    n, gap, np.linalg.norm(want))
+        grad_gaps.append(gaps)
+        jax_weights.append({n: p.data().asnumpy().astype(np.float64)
+                            for n, p in jparams.items()})
+    # SGD with momentum: mom_t = MOM mom_{t-1} - LR (g_t / B + WD w_{t-1}),
+    # w_t = w_{t-1} + mom_t.  A gap d_t in the summed gradient moves mom_t
+    # by LR d_t / B and w_t with it, carried forward by MOM
+    trainer = seen[-1][1]
+    jstates = jtrainer._updaters[0].states
+    jindex = {n: i for i, n in enumerate(jparams)}
+    tindex = {n: i for i, (n, _) in enumerate(tnet.named_parameters())}
+    state = tnet.state_dict()
+    for n in trainable:
+        d1, d2 = (gaps[n] / len(batches[0][0]) for gaps in grad_gaps)
+        w1 = jax_weights[0][n]
+        mom_bound = LR * (MOM * d1 + d2) + LR * WD * LR * d1
+        w_bound = LR * d1 + mom_bound
+        want_w = jparams[n].data().asnumpy()
+        got_w = state[pairs[n]].numpy()
+        assert np.all(np.abs(got_w - want_w)
+                      <= w_bound + W_RTOL * np.abs(want_w) + W_ATOL), n
+        want_m = jstates[jindex[n]].asnumpy()
+        got_m = trainer._updater.states[tindex[pairs[n]]].numpy()
+        assert np.all(np.abs(got_m - want_m)
+                      <= mom_bound + W_RTOL * np.abs(w1) + W_ATOL), n
+    for n, p in jparams.items():
+        if n.endswith(("running_mean", "running_var")):
+            want = p.data().asnumpy()
+            got = state[pairs[n]].numpy()
+            assert np.all(np.isfinite(got))
+            assert np.abs(got - want).max() <= 0.25 * np.abs(want).max(), n
+
+
+def test_resnet50_fp32_gradients_are_as_accurate_as_jax():
+    """Why GRAD_REL: against an fp64 run of the port, both packages' fp32
+    step-1 gradients lie within FP64_REL of it, leaf by leaf, and the
+    port's median leaf is no farther than twice the JAX package's."""
+    jnet, tnet, pairs, batches = _fit_pair()
+    x, y = batches[0]
+    _jax_step(jnet, x, y)
+    t64 = port_model("resnet50_v1", arrays_of(jnet)).double()
+
+    def port_grads(net, dtype):
+        with autograd.record():
+            loss = SoftmaxCrossEntropyLoss()(net(x.to(dtype)), y.to(dtype))
+        loss.backward(torch.ones_like(loss))
+        return {n: p.grad.double() for n, p in net.named_parameters()
+                if p.requires_grad}
+
+    g32, g64 = port_grads(tnet, torch.float32), port_grads(t64, torch.float64)
+    port_rel, jax_rel = {}, {}
+    for n, p in jnet.collect_params().items():
+        if p.grad_req == "null" or n.endswith("bias") and "dense" not in n:
+            continue
+        truth = g64[pairs[n]]
+        scale = truth.norm().item()
+        jax_rel[n] = np.linalg.norm(p.grad().asnumpy() - truth.numpy()) \
+            / scale
+        port_rel[n] = (g32[pairs[n]] - truth).norm().item() / scale
+    print("worst leaf: port %.3g (%s), JAX %.3g (%s); median: port %.3g, "
+          "JAX %.3g" % (
+              max(port_rel.values()), max(port_rel, key=port_rel.get),
+              max(jax_rel.values()), max(jax_rel, key=jax_rel.get),
+              np.median(list(port_rel.values())),
+              np.median(list(jax_rel.values()))))
+    assert max(port_rel.values()) <= FP64_REL
+    assert max(jax_rel.values()) <= FP64_REL
+    assert np.median(list(port_rel.values())) \
+        <= 2 * np.median(list(jax_rel.values()))
+
+
+def test_train_step_accumulates_accuracy_and_moves_running_stats():
+    net = vision.resnet18_v1(classes=10, device="cpu")
+    initializer.initialize(net, generator=torch.Generator().manual_seed(0))
+    trainer = gluon.Trainer(net.named_parameters(), "sgd",
+                            {"learning_rate": LR, "momentum": MOM, "wd": WD})
+    acc = metric.Accuracy()
+    x, y = ic.get_synthetic_iter(_args(batch_size=4, num_classes=10),
+                                 (3, 16, 16), "cpu")[0]
+    before = net.features[1].running_mean.clone()
+    loss = ic.train_step(net, trainer, SoftmaxCrossEntropyLoss(), acc, x, y,
+                         4)
+    assert loss.shape == (4,) and acc.num_inst == 4
+    assert not torch.equal(before, net.features[1].running_mean)
+
+
+def test_main_trains_on_the_cpu(caplog):
+    caplog.set_level(logging.INFO)
+    net = ic.main(["--device", "cpu", "--network", "resnet18_v1",
+                   "--num-classes", "10", "--image-shape", "3,32,32",
+                   "--disp-batches", "5"])
+    assert all(torch.isfinite(t).all() for t in net.state_dict().values())
+    text = caplog.text
+    assert "Epoch[0] Batch [10] Speed:" in text
+    assert "Epoch[0] done in" in text and "accuracy=" in text
