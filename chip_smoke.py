@@ -13,7 +13,13 @@ classes, fp32) through the example's ``fit_gluon`` loop
 layouts, profiles a step and holds a small copy against the CPU.  That path
 launches no hand kernel: the JAX package's convolution, pooling and
 BatchNorm are XLA ops, not Pallas kernels, and the port runs them as
-PyTorch's (cuDNN) ops.
+PyTorch's (cuDNN) ops.  Both models then train again in bf16, as the JAX
+package trains them: the LM cast to bf16 with ``Adam(multi_precision)``,
+its attention in the kernel's bf16 path (``lm_bf16_*``), and ResNet-50
+through ``fit_gluon --dtype bfloat16`` in both layouts and with
+``multi_precision`` (``resnet_bf16_*``), each profiled and held against
+the CPU in bf16.  TF32 stays off but in the TF32 controls of the fp32
+``*_vs_cpu`` phases.
 
     python3 chip_smoke.py
 
@@ -70,12 +76,27 @@ RESNET_GRAD_REL_BOUND = 0.1
 # 1.2, does not tell them apart: the steps after the first amplify)
 RESNET_AFTER_MEDIAN_BOUND = 0.3
 RESNET_VS_CPU = (2, 64, 3)
+# bf16 on the card against bf16 on the CPU, the same runs cut as above,
+# with two controls: the same run in fp32, and in bf16 from weights one
+# bf16 step away from zero (a rounding fault of bf16's own size, biased).
+# ResNet-50 v1's bf16 training step from Xavier weights is chaotic at any
+# size a CPU can run: rounding the weights and input to bf16 moves its
+# step-1 logits by a tenth of their range and its gradients by more than
+# their norm, so the training readings and both controls land together
+# (an H100 read logits 1.58 apart, the controls 1.60 and 1.87) and no bound
+# can sit between them.  The held number is the logits of the starting
+# weights in inference mode (running statistics), which bf16 perturbs
+# smoothly; bound between the reading and the step control
+RESNET_BF16_PREDICT_BOUND = 5e-3
+# the LM's step-1 gradients, worst leaf ||a - b|| / ||b||: an H100 read
+# 0.0189 (tok.weight); the fp32 control 0.0204, the step control 0.0286
+LM_BF16_GRAD_REL_BOUND = 0.024
 
-# published peaks by card (NVIDIA data sheets, dense): fp32 on CUDA cores
-# and TF32 on tensor cores in FLOP/s, memory bandwidth in bytes/s
-PEAKS = {"H100 PCIe": (51.2e12, 378e12, 2.0e12),
-         "H100 NVL": (60e12, 417.5e12, 3.9e12),
-         "H100": (67e12, 495e12, 3.35e12)}
+# published peaks by card (NVIDIA data sheets, dense): fp32 on CUDA cores,
+# TF32 and bf16 on tensor cores in FLOP/s, memory bandwidth in bytes/s
+PEAKS = {"H100 PCIe": (51.2e12, 378e12, 756e12, 2.0e12),
+         "H100 NVL": (60e12, 417.5e12, 835e12, 3.9e12),
+         "H100": (67e12, 495e12, 989e12, 3.35e12)}
 TIMED_CALLS = 10   # back-to-back calls between one pair of CUDA events
 BQ, BK = 64, 64    # the kernel's query rows a block and keys a K/V tile
 
@@ -88,6 +109,13 @@ def phase(label, **fields):
 def fail(msg):
     print("FAIL: %s" % msg, flush=True)
     sys.exit(1)
+
+
+def reset_launches(cuda_ops):
+    """Set the kernel's launch counts, in all and by dtype, to 0."""
+    cuda_ops.flash_attention.launches = 0
+    for dtype in cuda_ops.flash_attention.launches_by_dtype:
+        cuda_ops.flash_attention.launches_by_dtype[dtype] = 0
 
 
 def card_peaks(name):
@@ -238,9 +266,19 @@ def check_kernel(cuda_ops, dev):
     ref = cuda_ops._attention_reference(qb.float(), kb.float(), vb.float(),
                                         True, D ** -0.5)
     bf16_err = (out.float() - ref).abs().max().item()
+    # the bf16 training path's layout: strided head views of one bf16
+    # (B, T, 3C) projection
+    qkv = randn(B, T, 3 * DIM).to(torch.bfloat16)
+    views = [t.view(B, T, H, D).transpose(1, 2)
+             for t in qkv.split(DIM, dim=-1)]
+    out = cuda_ops.flash_attention(*views, causal=True)
+    torch.cuda.synchronize()
+    ref = cuda_ops._attention_reference(*(t.float() for t in views), True,
+                                        D ** -0.5)
+    bf16_err = max(bf16_err, (out.float() - ref).abs().max().item())
     if not bf16_err < BF16_BOUND:
         fail("kernel bf16 err %.3g >= %g" % (bf16_err, BF16_BOUND))
-    phase("kernel_bf16", shape=(B, H, T, D), max_abs_err=bf16_err,
+    phase("kernel_bf16", shape=(B, H, T, D), cases=2, max_abs_err=bf16_err,
           bound=BF16_BOUND)
 
     # time at the full served shape, fp32 causal
@@ -250,7 +288,7 @@ def check_kernel(cuda_ops, dev):
         q, k, v, True, D ** -0.5))
     library_ms = time_ms(lambda: torch.nn.functional.
                          scaled_dot_product_attention(q, k, v, is_causal=True))
-    fp32_peak, tf32_peak, bytes_peak = card_peaks(
+    fp32_peak, tf32_peak, bf16_peak, bytes_peak = card_peaks(
         torch.cuda.get_device_name(0))
     pairs = B * H * T * (T + 1) // 2            # visible (query, key) pairs
     flops = 4 * D * pairs                       # q.k and p.v
@@ -262,22 +300,40 @@ def check_kernel(cuda_ops, dev):
     ops_ms = min(cuda_core_ms, tensor_core_ms)
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    # the other staging path at the same shape: bf16, loads widened by the
-    # threads
-    ms_bf16 = time_ms(lambda: cuda_ops.flash_attention(qb, kb, vb,
-                                                       causal=True))
-    phase("kernel_time_staging", shape=(B, H, T, D),
-          calls_per_timing=TIMED_CALLS, bf16_ms=ms_bf16)
     phase("kernel_time", shape=(B, H, T, D), calls_per_timing=TIMED_CALLS,
           ms=ms, plain_ms=plain_ms, library_ms=library_ms,
           bound_cuda_core_ms=cuda_core_ms,
           bound_tensor_core_ms=tensor_core_ms, bytes_ms=bytes_ms,
           bound_ms=bound_ms, bound_by=bound_by)
+    # bf16 at the same shape, the bf16 LM's: the kernel widens its loads to
+    # fp32 and runs the split-TF32 path; the bound is bf16's own (q, k, v, o
+    # at two bytes, the operations at the bf16 tensor-core peak)
+    ms_bf16 = time_ms(lambda: cuda_ops.flash_attention(qb, kb, vb,
+                                                       causal=True))
+    plain_ms_bf16 = time_ms(lambda: cuda_ops._attention_reference(
+        qb, kb, vb, True, D ** -0.5))
+    library_ms_bf16 = time_ms(lambda: torch.nn.functional.
+                              scaled_dot_product_attention(qb, kb, vb,
+                                                           is_causal=True))
+    ops_ms_bf16 = flops / bf16_peak * 1e3
+    bytes_ms_bf16 = 4 * B * H * T * D * 2 / bytes_peak * 1e3
+    bound_ms_bf16 = max(ops_ms_bf16, bytes_ms_bf16)
+    bound_by_bf16 = "operations" if ops_ms_bf16 >= bytes_ms_bf16 \
+        else "bytes"
+    phase("kernel_time_bf16", shape=(B, H, T, D),
+          calls_per_timing=TIMED_CALLS, ms=ms_bf16, plain_ms=plain_ms_bf16,
+          library_ms=library_ms_bf16, ops_ms=ops_ms_bf16,
+          bytes_ms=bytes_ms_bf16, bound_ms=bound_ms_bf16,
+          bound_by=bound_by_bf16)
     return {"max_abs_err": max(worst, serve_err), "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_cuda_core_ms": cuda_core_ms,
-            "bound_tensor_core_ms": tensor_core_ms, "bytes_ms": bytes_ms}
+            "bound_tensor_core_ms": tensor_core_ms, "bytes_ms": bytes_ms,
+            "max_abs_err_bf16": bf16_err, "ms_bf16": ms_bf16,
+            "plain_ms_bf16": plain_ms_bf16,
+            "library_ms_bf16": library_ms_bf16,
+            "bound_ms_bf16": bound_ms_bf16, "bound_by_bf16": bound_by_bf16}
 
 
 def serve(cuda_ops, dev, card):
@@ -298,7 +354,7 @@ def serve(cuda_ops, dev, card):
                          np.arange(T, dtype=np.int32)))
 
     server = serving.ModelServer()
-    cuda_ops.flash_attention.launches = 0
+    reset_launches(cuda_ops)
     try:
         t0 = time.time()
         model = server.load_model(
@@ -437,9 +493,27 @@ def kernel_grad(cuda_ops, dev):
         if not err < GRAD_BOUND:
             fail("flash_attention gradient at %s err %.3g >= %g"
                  % (shape, err, GRAD_BOUND))
+    # bf16, the bf16 LM's: the backward is the plain version's in bf16, fed
+    # the kernel's rounded output (grad of sum(o**2) is 2o), so the
+    # gradients agree to bf16's rounding, relative to their largest value
+    qb, kb, vb = (torch.randn(*train_shape, generator=g, device=dev)
+                  .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    got = torch.autograd.grad(
+        (cuda_ops.flash_attention(qb, kb, vb, causal=True).float() ** 2)
+        .sum(), (qb, kb, vb))
+    want = torch.autograd.grad((cuda_ops._attention_reference(
+        qb, kb, vb, True, train_shape[-1] ** -0.5).float() ** 2).sum(),
+        (qb, kb, vb))
+    torch.cuda.synchronize()
+    bf16_err = max(((a.float() - b.float()).abs().max()
+                    / b.float().abs().max()).item()
+                   for a, b in zip(got, want))
+    if not bf16_err < BF16_BOUND:
+        fail("flash_attention bf16 gradient err %.3g >= %g"
+             % (bf16_err, BF16_BOUND))
     launches = cuda_ops.flash_attention.launches - before
-    if launches != 2:
-        fail("kernel_grad launched the kernel %d times, not 2" % launches)
+    if launches != 3:
+        fail("kernel_grad launched the kernel %d times, not 3" % launches)
     # q, k, v are the training shape's from here on
     grad_out = torch.randn(*train_shape, generator=g, device=dev)
 
@@ -452,6 +526,7 @@ def kernel_grad(cuda_ops, dev):
         lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True)), reps=5, calls=4)
     phase("kernel_grad", cases=2, max_abs_err=worst, bound=GRAD_BOUND,
+          bf16_max_rel_err=bf16_err, bf16_bound=BF16_BOUND,
           launches=launches, shape=train_shape, fwd_bwd_ms=fwd_bwd_ms,
           library_fwd_bwd_ms=library_fwd_bwd_ms)
     return {"fwd_bwd_ms": fwd_bwd_ms,
@@ -492,17 +567,22 @@ def new_lm(dev, depth, seed):
         generator=torch.Generator().manual_seed(seed))
 
 
-def train(cuda_ops, dev, card):
+def train(cuda_ops, dev, card, bf16=False):
     """Phase: the full-width LM takes TRAIN_STEPS Adam steps through
     ``gluon.Trainer`` on ``pattern_batch`` data; every step's forward must
-    launch the kernel once a layer.  Step time by CUDA events, median over
-    the steps after the first."""
+    launch the kernel once a layer, in the model's dtype and never in the
+    other.  With ``bf16`` the model is cast to bf16 and Adam keeps fp32
+    master weights (``multi_precision``).  Step time by CUDA events, median
+    over the steps after the first."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 
     net = new_lm(dev, DEPTH, 0)
+    if bf16:
+        net.cast("bfloat16")
     trainer = gluon.Trainer(net.named_parameters(), "adam",
-                            {"learning_rate": TRAIN_LR})
+                            {"learning_rate": TRAIN_LR,
+                             "multi_precision": bf16})
     ce = SoftmaxCrossEntropyLoss()
     batches = lm_batches(np.random.RandomState(0), TRAIN_STEPS, TRAIN_B,
                          MAX_LEN, dev)
@@ -511,7 +591,7 @@ def train(cuda_ops, dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, step_ms = [], []
-    cuda_ops.flash_attention.launches = 0
+    reset_launches(cuda_ops)
     for x, y in batches:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -523,22 +603,28 @@ def train(cuda_ops, dev, card):
         losses.append(loss.item())
         step_ms.append(start.elapsed_time(end))
     launches = cuda_ops.flash_attention.launches
+    by_dtype = dict(cuda_ops.flash_attention.launches_by_dtype)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    label, dtype = ("lm_bf16_train", "bfloat16") if bf16 \
+        else ("train", "float32")
     if not all(np.isfinite(losses)):
-        fail("training losses not finite: %s" % losses)
-    if launches != DEPTH * TRAIN_STEPS:
-        fail("flash_attention launches %d != %d layers x %d steps"
-             % (launches, DEPTH, TRAIN_STEPS))
+        fail("%s losses not finite: %s" % (label, losses))
+    if launches != DEPTH * TRAIN_STEPS or by_dtype[dtype] != launches:
+        fail("%s: flash_attention launches %s, not %d layers x %d steps "
+             "in %s" % (label, by_dtype, DEPTH, TRAIN_STEPS, dtype))
+    if bf16 and not all(p.dtype == torch.bfloat16 for p in net.parameters()):
+        fail("lm_bf16_train: a parameter left bf16")
     median_ms = float(np.median(step_ms[1:]))
-    phase("train", batch=(TRAIN_B, MAX_LEN), steps=TRAIN_STEPS,
+    phase(label, batch=(TRAIN_B, MAX_LEN), steps=TRAIN_STEPS,
           losses=json.dumps(losses), launches=launches,
+          launches_by_dtype=json.dumps(by_dtype),
           step_ms=json.dumps(step_ms), median_step_ms=median_ms,
           tokens_per_s=TRAIN_B * MAX_LEN / (median_ms / 1e3),
           peak_memory_gb=peak_gb, card='"%s"' % card)
     return launches, (net, trainer, ce, batches[-1], pos)
 
 
-def train_profile(net, trainer, ce, batch, pos, card):
+def train_profile(net, trainer, ce, batch, pos, card, label="train_profile"):
     """Phase: where one full-width training step's time goes.  CUDA events
     around its forward (with the loss), backward and update; then the same
     step under torch.profiler: device time by kernel, the plain attention
@@ -594,12 +680,13 @@ def train_profile(net, trainer, ce, batch, pos, card):
     attn_bwd_gemm = sum(d for n, d in attn_bwd if "gemm" in n.lower()) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
-    phase("train_profile", batch=(TRAIN_B, MAX_LEN), forward_ms=fwd_ms,
+    phase(label, batch=(TRAIN_B, MAX_LEN), forward_ms=fwd_ms,
           backward_ms=bwd_ms, update_ms=upd_ms,
           step_ms=fwd_ms + bwd_ms + upd_ms,
           device_ms=kernel_ms(lambda k: True),
           flash_fwd_ms=kernel_ms(lambda k: "flash_attention_fwd" in k),
-          gemm_ms=kernel_ms(lambda k: "gemm" in k.lower()),
+          gemm_ms=kernel_ms(lambda k: any(t in k.lower() for t in
+                                          ("gemm", "nvjet", "xmma"))),
           attention_backward_ms=op_ms("_FlashAttentionBackward"),
           attention_backward_gemm_ms=attn_bwd_gemm,
           update_device_ms=op_ms("trainer.step"),
@@ -740,79 +827,132 @@ def resnet_model(dev, card):
           card='"%s"' % card)
 
 
-def resnet_train(dev, card):
+def resnet_fit(dev, card, dtype="float32"):
     """Phase: resnet50_v1 trained through the example's entry point
-    (``image_classification.main``, one epoch of the synthetic set), then,
-    in each layout, RESNET_STEPS steps of its loop (``train_step``) timed
-    by CUDA events: one warm, the median of the rest."""
+    (``image_classification.main``, one epoch of the synthetic set) with
+    ``--dtype``."""
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    label = "resnet_fit" if dtype == "float32" else "resnet_bf16_fit"
+    t0 = time.time()
+    net = ic.main(["--network", "resnet50_v1", "--batch-size", str(RESNET_B),
+                   "--num-epochs", "1", "--dtype", dtype])
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    state = net.state_dict()
+    if not all(torch.isfinite(t).all() for t in state.values()):
+        fail("%s left non-finite weights" % label)
+    if {str(t.dtype) for t in state.values()} != {"torch." + dtype}:
+        fail("%s: arrays not all %s" % (label, dtype))
+    moved = sum(not torch.equal(b, torch.ones_like(b)) for n, b in
+                net.named_buffers() if n.endswith("running_var"))
+    if moved != 53:
+        fail("%s moved %d of 53 running variances" % (label, moved))
+    phase(label, network="resnet50_v1", batch=RESNET_B, dtype=dtype,
+          steps=-(-max(10 * RESNET_B, 320) // RESNET_B),
+          seconds=fit_s, running_vars_moved=moved, card='"%s"' % card)
+
+
+def resnet_steps(dev, card, batches, layout, dtype, label,
+                 multi_precision=False):
+    """Phase ``label``: resnet50_v1 in ``layout``, cast to ``dtype`` as
+    ``fit_gluon`` casts it, trained over ``batches`` by its loop
+    (``train_step``, each batch's data cast to ``dtype``) with the
+    example's SGD, timed by CUDA events: one warm step, the median of the
+    rest.  Returns the model, its Trainer and loss."""
     from mxnet_tpu_torch import gluon, metric
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.models import image_classification as ic
 
-    t0 = time.time()
-    net = ic.main(["--network", "resnet50_v1", "--batch-size", str(RESNET_B),
-                   "--num-epochs", "1"])
-    torch.cuda.synchronize()
-    fit_s = time.time() - t0
-    if not all(torch.isfinite(t).all() for t in net.state_dict().values()):
-        fail("fit_gluon left non-finite weights")
-    moved = sum(not torch.equal(b, torch.ones_like(b)) for n, b in
-                net.named_buffers() if n.endswith("running_var"))
-    if moved != 53:
-        fail("fit_gluon moved %d of 53 running variances" % moved)
-    phase("resnet_fit", network="resnet50_v1", batch=RESNET_B,
-          steps=-(-max(10 * RESNET_B, 320) // RESNET_B),
-          seconds=fit_s, running_vars_moved=moved, card='"%s"' % card)
-    del net
-
     args = resnet_args(RESNET_B)
+    net = new_resnet(dev, 0, layout).cast(dtype)
+    trainer = gluon.Trainer(net.named_parameters(), args.optimizer,
+                            {"learning_rate": args.lr, "momentum": args.mom,
+                             "wd": args.wd,
+                             "multi_precision": multi_precision},
+                            kvstore=args.kv_store)
+    ce, acc = SoftmaxCrossEntropyLoss(), metric.Accuracy()
+    stats = [b.clone() for b in net.buffers()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    for x, y in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = ic.train_step(net, trainer, ce, acc,
+                             x.to(getattr(torch, dtype)), y, RESNET_B)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(loss.float().mean().item())
+        step_ms.append(start.elapsed_time(end))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(np.isfinite(losses)):
+        fail("%s %s losses not finite: %s" % (label, layout, losses))
+    moved = sum(not torch.equal(a, b) for a, b in zip(stats, net.buffers()))
+    if moved != len(stats):
+        fail("%s %s: %d of %d running statistics moved"
+             % (label, layout, moved, len(stats)))
+    dtypes = sorted({str(t.dtype) for t in net.state_dict().values()})
+    if dtypes != ["torch." + dtype]:
+        fail("%s %s: arrays are %s, not %s" % (label, layout, dtypes, dtype))
+    median_ms = float(np.median(step_ms[1:]))
+    phase(label, layout=layout, network="resnet50_v1", dtype=dtype,
+          multi_precision=multi_precision,
+          batch=(RESNET_B, 3, RESNET_SIZE, RESNET_SIZE),
+          steps=len(batches), losses=json.dumps(losses),
+          accuracy=acc.get()[1], step_ms=json.dumps(step_ms),
+          median_step_ms=median_ms,
+          imgs_per_s=RESNET_B / (median_ms / 1e3),
+          peak_memory_gb=peak_gb, running_stats_moved=moved,
+          card='"%s"' % card)
+    return net, trainer, ce
+
+
+def resnet_train(dev, card, dtype="float32"):
+    """Phases: ``resnet_fit`` (or ``resnet_bf16_fit``), then RESNET_STEPS
+    steps of the loop in each layout (``resnet_train``,
+    ``resnet_bf16_train``).  Returns each layout's model state for the
+    profile, by layout."""
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    resnet_fit(dev, card, dtype)
+    label = "resnet_train" if dtype == "float32" else "resnet_bf16_train"
     batches = ic.get_synthetic_iter(
-        args, (3, RESNET_SIZE, RESNET_SIZE), dev)[:RESNET_STEPS]
+        resnet_args(RESNET_B), (3, RESNET_SIZE, RESNET_SIZE),
+        dev)[:RESNET_STEPS]
+    states = {}
     for layout in ("NCHW", "NHWC"):
         if layout == "NHWC":
             batches = [(x.permute(0, 2, 3, 1).contiguous(), y)
                        for x, y in batches]
-        net = new_resnet(dev, 0, layout)
-        trainer = gluon.Trainer(net.named_parameters(), args.optimizer,
-                                {"learning_rate": args.lr,
-                                 "momentum": args.mom, "wd": args.wd},
-                                kvstore=args.kv_store)
-        ce, acc = SoftmaxCrossEntropyLoss(), metric.Accuracy()
-        stats = [b.clone() for b in net.buffers()]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        losses, step_ms = [], []
-        for x, y in batches:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            loss = ic.train_step(net, trainer, ce, acc, x, y, RESNET_B)
-            end.record()
-            torch.cuda.synchronize()
-            losses.append(loss.mean().item())
-            step_ms.append(start.elapsed_time(end))
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        if not all(np.isfinite(losses)):
-            fail("%s training losses not finite: %s" % (layout, losses))
-        moved = sum(not torch.equal(a, b)
-                    for a, b in zip(stats, net.buffers()))
-        if moved != len(stats):
-            fail("%s: %d of %d running statistics moved"
-                 % (layout, moved, len(stats)))
-        median_ms = float(np.median(step_ms[1:]))
-        phase("resnet_train", layout=layout, network="resnet50_v1",
-              batch=(RESNET_B, 3, RESNET_SIZE, RESNET_SIZE),
-              steps=len(batches), losses=json.dumps(losses),
-              accuracy=acc.get()[1], step_ms=json.dumps(step_ms),
-              median_step_ms=median_ms,
-              imgs_per_s=RESNET_B / (median_ms / 1e3),
-              peak_memory_gb=peak_gb, running_stats_moved=moved,
-              card='"%s"' % card)
-        if layout == "NCHW":
-            state = (net, trainer, ce, batches[-1])
-        else:
-            del net, trainer
-    return state
+        net, trainer, ce = resnet_steps(dev, card, batches, layout, dtype,
+                                        label)
+        x, y = batches[-1]
+        states[layout] = (net, trainer, ce, (x.to(getattr(torch, dtype)), y))
+    return states
+
+
+def resnet_bf16_mp(dev, card):
+    """Phase: the bf16 step with ``multi_precision=True``: SGD keeps fp32
+    master weights, and each bf16 weight is its master's cast."""
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    batches = ic.get_synthetic_iter(
+        resnet_args(RESNET_B), (3, RESNET_SIZE, RESNET_SIZE),
+        dev)[:RESNET_STEPS]
+    net, trainer, _ = resnet_steps(dev, card, batches, "NCHW", "bfloat16",
+                                   "resnet_bf16_mp", multi_precision=True)
+    states = trainer._updater.states
+    params = {i: p for i, p in enumerate(trainer._params) if p.requires_grad}
+    for i, p in params.items():
+        master = states[i][1]
+        if master.dtype != torch.float32:
+            fail("resnet_bf16_mp: master %d is %s" % (i, master.dtype))
+        if not torch.equal(p.detach(), master.to(torch.bfloat16)):
+            fail("resnet_bf16_mp: weight %d is not its master's cast" % i)
+    phase("resnet_bf16_mp_masters", masters=len(params),
+          master_dtype="float32", weights_are_casts=True)
 
 
 # the profile's categories, by the names of the ranges and ops a kernel
@@ -875,11 +1015,20 @@ def layer_ranges(net):
     return handles
 
 
-def resnet_profile(net, trainer, ce, batch, card):
+# a convolution kernel whose name carries one of these runs on the tensor
+# cores (cuDNN names the data types and the MMA shape); the fp32 kernels
+# that TF32-off leaves ("f32f32") run on the CUDA cores
+TENSOR_CORE_TAGS = ("bf16", "tf32", "f16", "16816", "1688", "hmma", "gmma",
+                    "tensorop")
+
+
+def resnet_profile(net, trainer, ce, batch, card, label="resnet_profile",
+                   layout="NCHW"):
     """Phase: where one resnet50_v1 training step's time goes.  CUDA
     events around its forward (with the loss), backward and update, and
     the host's clock around the update's launches; then the same step
-    under torch.profiler, its device time by category."""
+    under torch.profiler, its device time by category, and how much of the
+    convolutions' time runs in tensor-core kernels."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from mxnet_tpu_torch import autograd
@@ -922,11 +1071,17 @@ def resnet_profile(net, trainer, ce, batch, card):
             h.remove()
     split, count, names, other = {}, {}, {}, {}
     fold_ms = 0.0   # BatchNorm's second pass for its running statistics
+    conv_tc_ms, conv_names = 0.0, {}
     for event in prof.events():
         for k in event.kernels:
             if event.name == "aten::var_mean":
                 fold_ms += k.duration / 1e3
             cat, top = resnet_category(event, k.name)
+            if cat == "convolution":
+                conv_names[k.name] = conv_names.get(k.name, 0.0) \
+                    + k.duration / 1e3
+                if any(t in k.name.lower() for t in TENSOR_CORE_TAGS):
+                    conv_tc_ms += k.duration / 1e3
             split[cat] = split.get(cat, 0.0) + k.duration / 1e3
             count[cat] = count.get(cat, 0) + 1
             names[k.name] = names.get(k.name, 0.0) + k.duration / 1e3
@@ -936,13 +1091,19 @@ def resnet_profile(net, trainer, ce, batch, card):
     if not device_ms:
         fail("the profiler saw no device time")
     top = sorted(names.items(), key=lambda kv: kv[1], reverse=True)[:10]
-    phase("resnet_profile", layout="NCHW", batch=RESNET_B,
+    top_conv = sorted(conv_names.items(), key=lambda kv: kv[1],
+                      reverse=True)[:4]
+    phase(label, layout=layout, batch=RESNET_B,
           forward_ms=fwd_ms, backward_ms=bwd_ms, update_ms=upd_ms,
           step_ms=fwd_ms + bwd_ms + upd_ms, update_host_ms=update_host_ms,
           update_device_ms=split.get("update", 0.0),
           update_kernels=count.get("update", 0), device_ms=device_ms,
           split_ms=json.dumps(split), kernels=json.dumps(count),
           batchnorm_fold_stats_ms=fold_ms,
+          conv_tensor_core_ms=conv_tc_ms,
+          conv_tensor_core_share=conv_tc_ms / max(split.get("convolution",
+                                                            0.0), 1e-9),
+          top_conv_kernels=json.dumps([[n[:90], ms] for n, ms in top_conv]),
           other_ms_by_op=json.dumps(other), card='"%s"' % card,
           top_device_ms=json.dumps([[n[:70], ms] for n, ms in top]))
 
@@ -1037,6 +1198,145 @@ def resnet_vs_cpu(dev):
              % (steps, after_err, RESNET_AFTER_MEDIAN_BOUND))
 
 
+def one_bf16_step_up(net):
+    """Move every parameter of the bf16 ``net`` one bf16 step away from
+    zero (its bits plus one): a change the size of bf16's own rounding."""
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_((p.view(torch.int16) + 1).view(torch.bfloat16))
+
+
+def bf16_controls(run, dev):
+    """The bf16 card run's two controls: the same run in fp32 (the weights
+    and data unrounded), and in bf16 from weights one bf16 step away."""
+    return {"fp32_control": run(dev, "float32"),
+            "bf16_step_control": run(dev, "bfloat16", step_up=True)}
+
+
+def resnet_bf16_vs_cpu(dev):
+    """Phase: resnet50_v1 from the same Xavier weights cast to bf16, on
+    the card and on the CPU: the logits of the starting weights in
+    inference mode, held at RESNET_BF16_PREDICT_BOUND between the card's
+    bf16 reading and its two controls (``bf16_controls``); then
+    RESNET_VS_CPU's batch and steps of the example's loop, each batch cast,
+    whose step-1 logits and gradients and the arrays after the last step
+    are printed beside the controls' (see RESNET_BF16_PREDICT_BOUND)."""
+    from mxnet_tpu_torch import gluon, metric
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    B, side, steps = RESNET_VS_CPU
+    args = resnet_args(B)
+    batches = ic.get_synthetic_iter(args, (3, side, side), "cpu")[:steps]
+    start = new_resnet("cpu", 1).state_dict()
+
+    def run(device, dtype, step_up=False):
+        net = new_resnet(device, 1)
+        net.load_state_dict(start)
+        net.cast(dtype)
+        if step_up:
+            one_bf16_step_up(net)
+        cast = getattr(torch, dtype)
+        with torch.no_grad():
+            predicted = net(batches[0][0].to(device, cast)).float().cpu()
+        trainer = gluon.Trainer(net.named_parameters(), "sgd",
+                                {"learning_rate": args.lr,
+                                 "momentum": args.mom, "wd": args.wd})
+        logits = []
+        hook = net.register_forward_hook(
+            lambda m, i, o: logits.append(o.detach().float().cpu()))
+        losses, grads = [], None
+        for x, y in batches:
+            loss = ic.train_step(net, trainer, SoftmaxCrossEntropyLoss(),
+                                 metric.Accuracy(), x.to(device, cast),
+                                 y.to(device), B)
+            losses.append(loss.float().mean().item())
+            if grads is None:
+                grads = {n: p.grad.detach().float().cpu()
+                         for n, p in net.named_parameters()
+                         if p.requires_grad}
+        hook.remove()
+        return predicted, logits[0], losses, grads, {
+            n: t.detach().float().cpu() for n, t in net.state_dict().items()}
+
+    want = run("cpu", "bfloat16")
+    runs = {"bf16": run(dev, "bfloat16")}
+    runs.update(bf16_controls(run, dev))
+    predict_err = {}
+    for label, got in runs.items():
+        grad_rel = leaf_rel_errs(without_conv_biases(got[3]), want[3])
+        after_rel = leaf_rel_errs(without_conv_biases(got[4]), want[4])
+        worst_grad = max(grad_rel, key=grad_rel.get)
+        predict_err[label] = (got[0] - want[0]).abs().max().item()
+        if not all(np.isfinite(got[2])):
+            fail("resnet_bf16_vs_cpu %s losses not finite: %s"
+                 % (label, got[2]))
+        phase("resnet_bf16_vs_cpu", run=label, batch=(B, 3, side, side),
+              predict_logits_max_abs_err=predict_err[label],
+              its_max_abs_logit=want[0].abs().max().item(),
+              predict_bound=RESNET_BF16_PREDICT_BOUND, steps=steps,
+              losses=json.dumps(list(zip(got[2], want[2]))),
+              step1_logits_max_abs_err=(got[1] - want[1]).abs().max().item(),
+              step1_grad_max_rel_err=grad_rel[worst_grad],
+              its_leaf=worst_grad,
+              median_leaf_rel_err=float(np.median(list(grad_rel.values()))),
+              after_median_rel_err=float(np.median(list(
+                  after_rel.values()))))
+    if not predict_err["bf16"] <= RESNET_BF16_PREDICT_BOUND:
+        fail("resnet bf16 inference logits on the card are %.3g from the "
+             "CPU's; bound %g" % (predict_err["bf16"],
+                                  RESNET_BF16_PREDICT_BOUND))
+
+
+def lm_bf16_vs_cpu(cuda_ops, dev):
+    """Phase: the LM, depth cut to VS_CPU's, cast to bf16 on the card and
+    on the CPU from the same weights: step 1's loss and gradients, each
+    leaf's relative gap held at LM_BF16_GRAD_REL_BOUND, between the card's
+    bf16 reading and two controls (``bf16_controls``).  The card's bf16
+    run must launch the kernel once a layer, in bf16."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    depth, B, T, _ = VS_CPU
+    start = new_lm("cpu", depth, 1).state_dict()
+    x, y = lm_batches(np.random.RandomState(1), 1, B, T, "cpu")[0]
+    pos = torch.arange(T, dtype=torch.int32).expand(B, T)
+    ce = SoftmaxCrossEntropyLoss()
+
+    def run(device, dtype, step_up=False):
+        net = new_lm(device, depth, 1)
+        net.load_state_dict(start)
+        net.cast(dtype)
+        if step_up:
+            one_bf16_step_up(net)
+        loss = forward_backward(net, ce, x.to(device), y.to(device),
+                                pos.to(device))
+        return loss.item(), {n: p.grad.float().cpu()
+                             for n, p in net.named_parameters()}
+
+    want = run("cpu", "bfloat16")
+    reset_launches(cuda_ops)
+    runs = {"bf16": run(dev, "bfloat16")}
+    by_dtype = dict(cuda_ops.flash_attention.launches_by_dtype)
+    if by_dtype != {"float32": 0, "bfloat16": depth}:
+        fail("lm_bf16_vs_cpu: flash_attention launches %s, not %d in bf16"
+             % (by_dtype, depth))
+    runs.update(bf16_controls(run, dev))
+    readings = {}
+    for label, (loss, grads) in runs.items():
+        rel = leaf_rel_errs(grads, want[1])
+        worst = max(rel, key=rel.get)
+        readings[label] = rel[worst]
+        phase("lm_bf16_vs_cpu", run=label, depth=depth, batch=(B, T),
+              loss=loss, cpu_loss=want[0], step1_grad_max_rel_err=rel[worst],
+              its_leaf=worst,
+              median_leaf_rel_err=float(np.median(list(rel.values()))),
+              rel_bound=LM_BF16_GRAD_REL_BOUND,
+              launches_by_dtype=json.dumps(by_dtype))
+    if not readings["bf16"] <= LM_BF16_GRAD_REL_BOUND:
+        fail("lm bf16 step-1 gradient %.3g from the CPU's, relative to its "
+             "norm; bound %g" % (readings["bf16"], LM_BF16_GRAD_REL_BOUND))
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -1056,7 +1356,9 @@ def main():
           torch=torch.__version__, cuda=torch.version.cuda,
           matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-          cudnn_benchmark=torch.backends.cudnn.benchmark)
+          cudnn_benchmark=torch.backends.cudnn.benchmark,
+          matmul_allow_bf16_reduced_precision_reduction=torch.backends.cuda.
+          matmul.allow_bf16_reduced_precision_reduction)
     print(smi, flush=True)
 
     build_report(_kernels)
@@ -1068,13 +1370,24 @@ def main():
     train_profile(*state, smi)
     del state
     train_vs_cpu(cuda_ops, dev)
+    launches_train_bf16, state = train(cuda_ops, dev, smi, bf16=True)
+    train_profile(*state, smi, label="lm_bf16_profile")
+    del state
+    lm_bf16_vs_cpu(cuda_ops, dev)
 
     resnet_model(dev, smi)
-    cuda_ops.flash_attention.launches = 0
-    state = resnet_train(dev, smi)
-    resnet_profile(*state, smi)
-    del state
+    reset_launches(cuda_ops)
+    states = resnet_train(dev, smi)
+    resnet_profile(*states["NCHW"], smi)
+    del states
     resnet_vs_cpu(dev)
+    states = resnet_train(dev, smi, "bfloat16")
+    for layout, state in states.items():
+        resnet_profile(*state, smi, label="resnet_bf16_profile",
+                       layout=layout)
+    del states, state
+    resnet_bf16_mp(dev, smi)
+    resnet_bf16_vs_cpu(dev)
     if cuda_ops.flash_attention.launches:
         fail("the ResNet path launched flash_attention %d times"
              % cuda_ops.flash_attention.launches)
@@ -1082,9 +1395,11 @@ def main():
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
-              "launches": launches_serve + launches_train,
+              "launches": launches_serve + launches_train
+              + launches_train_bf16,
               "launches_serve": launches_serve,
-              "launches_train": launches_train}
+              "launches_train": launches_train,
+              "launches_train_bf16": launches_train_bf16}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

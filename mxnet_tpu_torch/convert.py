@@ -14,7 +14,11 @@ and fills the matching port module.  Gluon names are auto-numbered.
   by position (:func:`mxnet_pairs`), each pair's kind (weight, bias, gamma,
   beta, running_mean, running_var) and shape checked.
 
-A missing, extra or wrongly shaped array raises, naming it.
+A missing, extra or wrongly shaped array raises, naming it.  Arrays arrive
+bit for bit, bfloat16 ones (``ml_dtypes``' type, which the JAX package's
+``asnumpy()`` gives for a cast block) included, and are copied into the
+port's tensors in their dtype: into a bf16 model exactly, into an fp32
+one widened exactly.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import re
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, tensor_from_numpy
 from .gluon.model_zoo.vision.resnet import ResNetV1, ResNetV2
 from .models.transformer_lm import TransformerLM
 
@@ -135,7 +139,7 @@ def load_mxnet_params(module, named_arrays):
         targets = module.state_dict(keep_vars=True)
         with torch.no_grad():
             for name, key in mxnet_pairs(module, named_arrays).items():
-                targets[key].copy_(torch.tensor(named_arrays[name]))
+                targets[key].copy_(tensor_from_numpy(named_arrays[name]))
         return module
     params = dict(module.named_parameters())
     filled = {}
@@ -161,5 +165,5 @@ def load_mxnet_params(module, named_arrays):
                             missing, model.__name__))
     with torch.no_grad():
         for target, name in filled.items():
-            params[target].copy_(torch.tensor(named_arrays[name]))
+            params[target].copy_(tensor_from_numpy(named_arrays[name]))
     return module

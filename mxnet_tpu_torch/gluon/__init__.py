@@ -1,6 +1,9 @@
-"""Gluon (counterpart of ``mxnet_tpu/gluon``): layers as ``nn.Module``s,
-losses, the Trainer and the model zoo."""
-from . import loss, model_zoo, nn
+"""Gluon (counterpart of ``mxnet_tpu/gluon``): layers as ``Block``s
+(``nn.Module``s with Gluon's ``cast``), parameters, losses, the Trainer
+and the model zoo."""
+from . import block, loss, model_zoo, nn, parameter
+from .block import Block
 from .trainer import Trainer
 
-__all__ = ["nn", "loss", "model_zoo", "Trainer"]
+__all__ = ["Block", "block", "nn", "loss", "model_zoo", "parameter",
+           "Trainer"]

@@ -18,9 +18,9 @@ inside ``nn.channels_last()``) gives the channel-last model, which takes
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ....context import resolve_device
+from ...block import Block
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, GlobalAvgPool2D,
                    HybridSequential, MaxPool2D)
 from ...nn.conv_layers import _resolve_layout
@@ -45,7 +45,7 @@ def _bn(channels, layout, device, **kwargs):
                      device=device, **kwargs)
 
 
-class BasicBlockV1(nn.Module):
+class BasicBlockV1(Block):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout=None, device=None):
         super().__init__()
@@ -66,7 +66,7 @@ class BasicBlockV1(nn.Module):
         return torch.relu(residual + self.body(x))
 
 
-class BottleneckV1(nn.Module):
+class BottleneckV1(Block):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout=None, device=None):
         super().__init__()
@@ -94,7 +94,7 @@ class BottleneckV1(nn.Module):
         return torch.relu(residual + self.body(x))
 
 
-class BasicBlockV2(nn.Module):
+class BasicBlockV2(Block):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout=None, device=None):
         super().__init__()
@@ -117,7 +117,7 @@ class BasicBlockV2(nn.Module):
         return self.conv2(x) + residual
 
 
-class BottleneckV2(nn.Module):
+class BottleneckV2(Block):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout=None, device=None):
         super().__init__()
@@ -160,7 +160,7 @@ def _make_layer(block, layers, channels, stride, in_channels, layout,
     return layer
 
 
-class ResNetV1(nn.Module):
+class ResNetV1(Block):
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout=None, device=None):
         super().__init__()
@@ -192,7 +192,7 @@ class ResNetV1(nn.Module):
         return self.output(self.features(x))
 
 
-class ResNetV2(nn.Module):
+class ResNetV2(Block):
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout=None, device=None):
         super().__init__()

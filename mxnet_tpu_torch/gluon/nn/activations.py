@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
+
+from ..block import Block
 
 __all__ = ["Activation"]
 
@@ -16,7 +17,7 @@ _ACT = {"relu": F.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
         "softrelu": F.softplus, "softsign": F.softsign}
 
 
-class Activation(nn.Module):
+class Activation(Block):
     def __init__(self, activation):
         super().__init__()
         if activation not in _ACT:

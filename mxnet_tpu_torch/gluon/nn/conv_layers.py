@@ -25,9 +25,9 @@ from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ...context import resolve_device
+from ..block import Block
 from .activations import Activation
 from .basic_layers import _param
 
@@ -86,7 +86,7 @@ def _channel_last(x):
     return x.permute(0, *range(2, x.dim()), 1)
 
 
-class _Conv(nn.Module):
+class _Conv(Block):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels, activation, use_bias, device):
         super().__init__()
@@ -159,7 +159,7 @@ class Conv3D(_Conv):
                          use_bias, device)
 
 
-class _Pooling(nn.Module):
+class _Pooling(Block):
     """2-D max or average pooling, as the JAX ``Pooling`` op computes it
     (``mxnet_tpu/ops/nn_ops.py:161``).  ``ceil_mode`` is its 'full'
     convention: the right edge is padded until ceil((x + 2p - k) / s) + 1

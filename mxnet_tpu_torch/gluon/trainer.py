@@ -9,12 +9,13 @@ gradient.
 Gluon's ``grad_req='write'``: a backward writes a parameter's gradient,
 where torch adds to it.  The Trainer hooks each parameter's gradient
 accumulator so that it drops the old ``.grad`` just before a backward
-stores the new one.  ``.grad`` then holds the last gradient written, as
-the JAX package's gradient buffer does, and a ``step`` with no backward
-since the last one applies that gradient again (zeros before the first
-backward).  ``torch.autograd.grad`` does not run the accumulator and leaves
-``.grad`` alone.  A parameter with ``requires_grad=False``
-(``grad_req='null'``) is left alone.
+stores the new one (again after ``cast`` changes the parameter's dtype).
+``.grad`` then holds the last gradient written, as the JAX package's
+gradient buffer does, and a ``step`` with no backward since the last one
+applies that gradient again (zeros before the first backward).
+``torch.autograd.grad`` does not run the accumulator and leaves ``.grad``
+alone.  A parameter with ``requires_grad=False`` (``grad_req='null'``) is
+left alone.
 """
 from __future__ import annotations
 
@@ -24,21 +25,30 @@ import torch
 
 from .. import optimizer as opt
 from ..base import MXNetError
+from . import parameter
 
 __all__ = ["Trainer"]
 
 
-def _write_grads(param):
-    """Hook ``param``'s gradient accumulator to drop ``.grad`` before it
-    stores a new one; returns the accumulator, which the caller holds."""
-    ref = weakref.ref(param)
-    accumulator = param.view_as(param).grad_fn.next_functions[0][0]
+class _GradWrite:
+    """``grad_req='write'`` for one parameter: a hook on its gradient
+    accumulator drops ``.grad`` before the accumulator stores a new one.
+    Holds the accumulator, which the parameter only references weakly.
+    ``gluon.parameter.cast`` calls :meth:`hook` again: a parameter whose
+    dtype changes gets a new accumulator."""
 
-    def drop_grad(grad_outputs):
-        ref().grad = None
+    def __init__(self, param):
+        self._param = weakref.ref(param)
+        parameter.watch_cast(param, self)
+        self.hook()
 
-    accumulator.register_prehook(drop_grad)
-    return accumulator
+    def hook(self):
+        param = self._param()
+        self.accumulator = param.view_as(param).grad_fn.next_functions[0][0]
+        self.accumulator.register_prehook(self._drop_grad)
+
+    def _drop_grad(self, grad_outputs):
+        self._param().grad = None
 
 
 def _param_list(params):
@@ -62,6 +72,8 @@ def _param_list(params):
 class Trainer:
     """``Trainer(params, optimizer, optimizer_params)``; ``optimizer`` is a
     name (``"adam"``, ``"sgd"``) or an :class:`~..optimizer.Optimizer`.
+    ``optimizer_params`` may set ``multi_precision`` (fp32 master copies of
+    fp16 and bf16 parameters).
     ``kvstore`` may be ``"device"``, ``"local"`` or None: on one device
     there is none.  A ``dist`` kvstore is not ported yet and raises."""
 
@@ -90,9 +102,8 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
-        # held so that each parameter keeps the accumulator that is hooked
-        self._accumulators = [_write_grads(p) for p in self._params
-                              if p.requires_grad]
+        self._grad_writes = [_GradWrite(p) for p in self._params
+                             if p.requires_grad]
 
     @property
     def learning_rate(self):

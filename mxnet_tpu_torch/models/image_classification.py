@@ -9,7 +9,8 @@ The Gluon loop: a model-zoo network, Xavier weights, ``gluon.Trainer``
 and ``metric.Accuracy``, on the card by default:
 
     python -m mxnet_tpu_torch.models.image_classification \\
-        --network resnet50_v1 --batch-size 32 --num-epochs 1
+        --network resnet50_v1 --batch-size 32 --num-epochs 1 \\
+        --dtype bfloat16
     python -m mxnet_tpu_torch.models.image_classification --device cpu \\
         --network resnet18_v1 --num-classes 10 --image-shape 3,32,32
 
@@ -19,9 +20,15 @@ It is made once and kept on the device.  The JAX iterator shuffles it with
 the JAX package's own RNG stream, which waits for the port of
 ``random.py``; this loop takes the batches in order (a last, partial batch
 is padded from the start, as ``NDArrayIter``'s default ``pad`` does).
+
+``--dtype bfloat16`` casts the initialized network to bf16 before the
+Trainer is built (BatchNorm included: the JAX ``BatchNorm.cast`` keeps
+fp32 only for float16) and each batch's data before its forward; the
+labels stay fp32.  SGD then updates the bf16 weights directly, with bf16
+momentum: the example leaves ``multi_precision`` at False.
 Not ported yet: ``--data-train`` (``ImageRecordIter``), the fused step
-(``--fused-step 1``), ``net.hybridize()`` (CachedOp), ``--dtype bfloat16``
-and ``--model-prefix`` (``export``).
+(``--fused-step 1``), ``net.hybridize()`` (CachedOp) and
+``--model-prefix`` (``export``).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import autograd, initializer
+from ..base import as_dtype
 from ..context import resolve_device
 from ..gluon import Trainer
 from ..gluon.loss import SoftmaxCrossEntropyLoss
@@ -57,6 +65,8 @@ def add_fit_args(parser):
     parser.add_argument("--kv-store", type=str, default="device",
                         help="device|local (one card; dist is not ported)")
     parser.add_argument("--disp-batches", type=int, default=20)
+    parser.add_argument("--dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"])
     return parser
 
 
@@ -96,12 +106,15 @@ def train_step(net, trainer, loss_fn, metric, x, y, batch_size):
 
 
 def fit_gluon(args, net, train_iter):
-    """Initialize ``net`` (Xavier, from a seeded generator), then train it
-    ``args.num_epochs`` epochs over ``train_iter``'s (data, label)
-    batches; logs speed and accuracy every ``args.disp_batches`` batches
-    and at each epoch's end.  Returns ``net``."""
+    """Initialize ``net`` (Xavier, from a seeded generator) and cast it to
+    ``args.dtype``, then train it ``args.num_epochs`` epochs over
+    ``train_iter``'s (data, label) batches, each batch's data cast to
+    ``args.dtype``; logs speed and accuracy every ``args.disp_batches``
+    batches and at each epoch's end.  Returns ``net``."""
     initializer.initialize(net, initializer.Xavier(),
                            generator=torch.Generator().manual_seed(0))
+    dtype = as_dtype(args.dtype)
+    net.cast(dtype)
     trainer = Trainer(net.named_parameters(), args.optimizer,
                       {"learning_rate": args.lr, "momentum": args.mom,
                        "wd": args.wd}, kvstore=args.kv_store)
@@ -112,7 +125,8 @@ def fit_gluon(args, net, train_iter):
         tic = time.time()
         nsamples = 0
         for i, (x, y) in enumerate(train_iter):
-            train_step(net, trainer, loss_fn, metric, x, y, args.batch_size)
+            train_step(net, trainer, loss_fn, metric, x.to(dtype), y,
+                       args.batch_size)
             nsamples += args.batch_size
             if (i + 1) % args.disp_batches == 0:
                 name, acc = metric.get()

@@ -5,7 +5,9 @@ the model, :37-96, ``pattern_batch`` and the training loop ``main``,
 A GPT-style decoder whose attention runs through the hand-written CUDA
 flash-attention kernel (``ops.cuda_ops.flash_attention``; its plain version
 when the model lies on the CPU).  ``forward(idx, pos_idx)`` takes int32
-(B, T) token and position ids and returns (B, T, vocab) logits.
+(B, T) token and position ids and returns (B, T, vocab) logits, in the
+parameters' dtype: ``net.cast("bfloat16")`` runs the whole model, and the
+kernel, in bf16.
 
 Train it on repeating k-grams, on the card by default:
 
@@ -22,11 +24,10 @@ import sys
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import autograd, initializer
 from ..context import resolve_device
-from ..gluon import Trainer
+from ..gluon import Trainer, block
 from ..gluon.loss import SoftmaxCrossEntropyLoss
 from ..gluon.nn import Dense, Embedding, HybridSequential, LayerNorm
 from ..ops.cuda_ops import flash_attention
@@ -35,7 +36,7 @@ __all__ = ["CausalSelfAttention", "Block", "TransformerLM", "pattern_batch",
            "main"]
 
 
-class CausalSelfAttention(nn.Module):
+class CausalSelfAttention(block.Block):
     def __init__(self, dim, heads, device=None):
         super().__init__()
         if dim % heads:
@@ -62,7 +63,7 @@ class CausalSelfAttention(nn.Module):
         return self.out(att.transpose(1, 2).reshape(B, T, C))
 
 
-class Block(nn.Module):
+class Block(block.Block):
     def __init__(self, dim, heads, device=None):
         super().__init__()
         self.ln1 = LayerNorm(dim, device=device)
@@ -78,7 +79,7 @@ class Block(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(block.Block):
     """Token + position embeddings, ``depth`` blocks, final LayerNorm and
     a vocab head.  Built on ``device`` (default ``cuda:0``); parameters are
     uninitialized until ``initializer.initialize`` or

@@ -11,9 +11,10 @@ it; a tensor on a CUDA device launches the kernel or raises.  There is no
 fallback from one to the other.
 
 Both devices go through one ``torch.autograd.Function``.  Its backward is
-the gradient of the plain version, recomputed from the saved q, k and v,
-as the JAX ``custom_vjp`` does (``pallas_ops.py:201-210``): the JAX
-package has no backward kernel, so neither has the port.
+the gradient of the plain version, recomputed from the saved q, k and v in
+their dtype (fp32 or bf16), as the JAX ``custom_vjp`` does
+(``pallas_ops.py:201-210``): the JAX package has no backward kernel, so
+neither has the port.
 """
 from __future__ import annotations
 
@@ -98,7 +99,9 @@ def flash_attention(q, k, v, causal=False, scale=None):
     return _FlashAttention.apply(q, k, v, causal, float(scale))
 
 
-flash_attention.launches = 0   # kernel launches, counted where they happen
+# kernel launches, counted where they happen: in all, and by input dtype
+flash_attention.launches = 0
+flash_attention.launches_by_dtype = dict.fromkeys(("float32", "bfloat16"), 0)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -169,4 +172,5 @@ def _flash_attention_cuda(q, k, v, causal, scale):
                                               tuple(k.shape), q.dtype))
     with _launch_lock:
         flash_attention.launches += 1
+        flash_attention.launches_by_dtype[str(q.dtype)[len("torch."):]] += 1
     return out

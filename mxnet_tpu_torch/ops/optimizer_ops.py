@@ -1,5 +1,6 @@
 """Optimizer updates (counterpart of ``mxnet_tpu/ops/optimizer_ops.py``
-``sgd_update``, ``sgd_mom_update`` and ``adam_update``, :29-95).
+``sgd_update``, ``sgd_mom_update``, ``mp_sgd_update``,
+``mp_sgd_mom_update`` and ``adam_update``, :29-95).
 
 Plain functions on tensors that return the new weight and states, as the
 JAX ops do; the Optimizer writes them back.  They are elementwise, which
@@ -10,12 +11,18 @@ The gradient is prepared as ``_prep_grad`` does there: rescaled, then
 clipped to ``[-clip, clip]`` (when ``clip_gradient`` > 0), and only then
 is ``wd * weight`` added.  MXNet 1.3 clips after weight decay; the JAX
 package clips before, and the port follows the JAX package.
+
+The ``mp_`` updates keep an fp32 master copy of an fp16 or bf16 weight:
+the gradient is widened to fp32 before it is prepared, the master weight
+(and the momentum) are updated in fp32, and the low-precision weight is
+the cast of the new master, not an update of its own.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["sgd_update", "sgd_mom_update", "adam_update"]
+__all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
+           "mp_sgd_mom_update", "adam_update"]
 
 
 def _prep_grad(grad, rescale_grad, clip_gradient):
@@ -39,6 +46,26 @@ def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
     g = _prep_grad(grad, rescale_grad, clip_gradient)
     mom_new = momentum * mom - lr * (g + wd * weight)
     return weight + mom_new, mom_new
+
+
+def mp_sgd_update(weight, grad, weight32, lr, wd=0.0, rescale_grad=1.0,
+                  clip_gradient=None):
+    """:func:`sgd_update` on the fp32 master ``weight32``; returns (the
+    master cast to ``weight``'s dtype, the master)."""
+    g = _prep_grad(grad.float(), rescale_grad, clip_gradient)
+    w32 = weight32 - lr * (g + wd * weight32)
+    return w32.to(weight.dtype), w32
+
+
+def mp_sgd_mom_update(weight, grad, mom, weight32, lr, momentum=0.0, wd=0.0,
+                      rescale_grad=1.0, clip_gradient=None):
+    """:func:`sgd_mom_update` on the fp32 master ``weight32`` with an fp32
+    momentum; returns (the master cast to ``weight``'s dtype, momentum,
+    master)."""
+    g = _prep_grad(grad.float(), rescale_grad, clip_gradient)
+    mom_new = momentum * mom - lr * (g + wd * weight32)
+    w32 = weight32 + mom_new
+    return w32.to(weight.dtype), mom_new, w32
 
 
 def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,

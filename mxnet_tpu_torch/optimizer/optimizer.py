@@ -5,8 +5,16 @@
 An update calls a plain function of ``ops/optimizer_ops.py`` and copies the
 new weight and states back into the tensors in place.  The step-dependent
 scalars (Adam's bias correction) are Python floats, as on the JAX
-package's eager path.  ``multi_precision=True`` (bf16 weights with fp32
-master copies) is not ported yet and raises.
+package's eager path.
+
+``multi_precision=True`` keeps an fp32 master copy of each fp16 or bf16
+weight in its state (``create_state_multi_precision``) and updates the
+master, writing its cast back to the weight (``update_multi_precision``);
+other weights, and every weight without the option, are updated as they
+are.  As in the JAX package, SGD's multi-precision path calls the ``mp_``
+ops directly and never counts the update: ``num_update`` stays at
+``begin_num_update`` and an ``lr_scheduler`` does not advance.  Adam's
+goes through ``update`` and counts.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import pickle
 import numpy as np
 import torch
 
+from ..base import tensor_from_numpy
 from ..ops import optimizer_ops
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
@@ -33,10 +42,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        if multi_precision:
-            raise NotImplementedError(
-                "multi_precision (fp32 master weights for bf16 parameters) "
-                "is not ported yet")
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad
@@ -70,8 +75,31 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def _keeps_master(self, weight):
+        return self.multi_precision and weight.dtype in _LOW_PRECISION
+
+    def create_state_multi_precision(self, index, weight):
+        """``create_state``; for an fp16 or bf16 weight under
+        ``multi_precision``, (the state of an fp32 master copy, the
+        copy)."""
+        if self._keeps_master(weight):
+            master = weight.detach().to(torch.float32)
+            return (self.create_state(index, master), master)
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """``update``; for an fp16 or bf16 weight under ``multi_precision``,
+        ``update`` of the fp32 master with the widened gradient, then the
+        master's cast written to the weight."""
+        if self._keeps_master(weight):
+            state, master = state
+            self.update(index, master, grad.float(), state)
+            _write_back((weight,), (master,))
+        else:
+            self.update(index, weight, grad, state)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -123,6 +151,7 @@ class Optimizer:
 
 register = Optimizer.register
 create = Optimizer.create_optimizer
+_LOW_PRECISION = (torch.float16, torch.bfloat16)
 
 
 def _write_back(targets, values):
@@ -153,6 +182,21 @@ class SGD(Optimizer):
         else:
             _write_back((weight,), (optimizer_ops.sgd_update(
                 weight, grad, **attrs),))
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """The ``mp_sgd`` ops on the fp32 master; the update is not counted
+        (the JAX package's quirk, kept)."""
+        if not self._keeps_master(weight):
+            self.update(index, weight, grad, state)
+            return
+        mom, master = state
+        attrs = self._common(index)
+        if mom is not None:
+            _write_back((weight, mom, master), optimizer_ops.mp_sgd_mom_update(
+                weight, grad, mom, master, momentum=self.momentum, **attrs))
+        else:
+            _write_back((weight, master), optimizer_ops.mp_sgd_update(
+                weight, grad, master, **attrs))
 
 
 @register
@@ -187,6 +231,17 @@ class Adam(Optimizer):
             epsilon=self.epsilon, **attrs))
 
 
+class _Bfloat16Bits:
+    """A bf16 optimizer state on the host: its bits as int16, so that a
+    state file round-trips it exactly without a bf16 numpy type."""
+
+    def __init__(self, tensor):
+        self.bits = tensor.detach().cpu().view(torch.int16).numpy()
+
+    def tensor(self):
+        return torch.from_numpy(self.bits).view(torch.bfloat16)
+
+
 class Updater:
     """Applies an optimizer to (index, grad, weight), keeping per-index
     state; ``get_states``/``set_states`` carry that state to and from
@@ -199,18 +254,22 @@ class Updater:
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
+            self.states[index] = self.optimizer.create_state_multi_precision(
+                index, weight)
             self.states_synced[index] = True
         elif not self.states_synced.get(index, True):
             self.states[index] = self._to_tensor(self.states[index],
                                                  weight.device)
             self.states_synced[index] = True
-        self.optimizer.update(index, weight, grad, self.states[index])
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
 
     @staticmethod
     def _to_tensor(s, device):
         if isinstance(s, np.ndarray):
-            return torch.from_numpy(s).to(device)
+            return tensor_from_numpy(s).to(device)
+        if isinstance(s, _Bfloat16Bits):
+            return s.tensor().to(device)
         if isinstance(s, (list, tuple)):
             return type(s)(Updater._to_tensor(x, device) for x in s)
         return s
@@ -227,11 +286,14 @@ class Updater:
         self.states_synced = dict.fromkeys(self.states.keys(), False)
 
     def get_states(self, dump_optimizer=False):
-        """The states as pickled numpy arrays; with ``dump_optimizer`` the
+        """The states as pickled numpy arrays (a bf16 state as its bits,
+        which numpy cannot hold as bf16); with ``dump_optimizer`` the
         optimizer's attributes too, except ``param_dict`` (the live
         parameters stay with the optimizer that loads them)."""
         def to_np(s):
             if isinstance(s, torch.Tensor):
+                if s.dtype == torch.bfloat16:
+                    return _Bfloat16Bits(s)
                 return s.detach().cpu().numpy()
             if isinstance(s, (list, tuple)):
                 return type(s)(to_np(x) for x in s)

@@ -211,6 +211,36 @@ def test_batchnorm_training_matches_jax_over_two_recorded_calls(axis,
             getattr(tbn, name).grad = None
 
 
+def test_batchnorm_folds_a_constant_channel_as_the_reference_does():
+    """The reference folds ``1/invstd**2 - eps`` of the batch variance, not
+    the variance itself: on a constant channel (variance 0) that is one
+    bit of eps below zero, -9.09e-13, and on a channel whose variance is
+    far below eps it keeps only multiples of eps's last bit (1.164e-10
+    where the variance is 1.176e-10).  After 400 recorded calls the port's
+    running statistics hold the same values at BN_RTOL, with no absolute
+    slack: folding the variance itself leaves channel 1 1% away."""
+    rng = np.random.RandomState(0)
+    x = rng.normal(0, 1, (4, 3, 5, 5)).astype(np.float32)
+    x[:, 0] = 0.5
+    x[:, 1] = 0.5 + 1e-5 * x[:, 1]
+    jbn = mx.gluon.nn.BatchNorm(in_channels=3)
+    jbn.initialize()
+    tbn = nn.BatchNorm(in_channels=3, device="cpu")
+    _copy_params(jbn, tbn)
+    jx, tx = mx.nd.array(x), _t(x)
+    for _ in range(400):
+        with mx.autograd.record():
+            jbn(jx)
+        with autograd.record():
+            tbn(tx)
+    for name in ("running_mean", "running_var"):
+        want = getattr(jbn, name).data().asnumpy()
+        got = getattr(tbn, name).numpy()
+        np.testing.assert_allclose(got, want, rtol=BN_RTOL, atol=0,
+                                   err_msg=name)
+    assert tbn.running_var[0] < 0 < tbn.running_var[1]
+
+
 def test_batchnorm_inference_uses_running_stats_outside_record():
     rng = np.random.RandomState(6)
     jbn, tbn = _bn_pair(1, 3, rng)

@@ -1,7 +1,9 @@
-"""mxnet_tpu_torch never loads JAX or the JAX package.
+"""mxnet_tpu_torch never loads JAX, the JAX package or ``ml_dtypes``.
 
 The port shares a name prefix with ``mxnet_tpu``, so module names are
-matched exactly (``mxnet_tpu`` or ``mxnet_tpu.*``), never by prefix.
+matched exactly (``mxnet_tpu`` or ``mxnet_tpu.*``), never by prefix.  The
+port reads the JAX package's bfloat16 arrays by their dtype's name, so it
+needs no ``ml_dtypes`` (the card's machine does not have it).
 """
 import ast
 import os
@@ -14,7 +16,7 @@ PACKAGE = os.path.join(REPO, "mxnet_tpu_torch")
 
 def _forbidden(module):
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "mxnet_tpu")
+    return top in ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
 def _imports(path):
@@ -38,7 +40,7 @@ def _package_files():
 
 def test_forbidden_matches_exact_package_not_prefix():
     assert _forbidden("mxnet_tpu") and _forbidden("mxnet_tpu.ops")
-    assert _forbidden("jax.numpy")
+    assert _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert not _forbidden("mxnet_tpu_torch.ops")
 
 
@@ -72,8 +74,17 @@ res = server.predict("lm", (np.zeros(8, np.int32), np.arange(8, dtype=np.int32))
                      timeout_ms=10000)
 server.stop()
 assert res.status == "OK", res
+# bf16: cast, a multi-precision step and a state file
+from mxnet_tpu_torch import gluon
+from mxnet_tpu_torch.gluon.model_zoo import vision
+from mxnet_tpu_torch.models import image_classification
+net.cast("bfloat16")
+trainer = gluon.Trainer(net.named_parameters(), "adam",
+                        {"multi_precision": True})
+trainer.step(1)
+trainer._updater.set_states(trainer._updater.get_states())
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes"))
 print("FORBIDDEN", bad)
 """
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -30,6 +30,7 @@ into the port with ``convert.load_mxnet_params``.
   38% from an fp64 run's.
 """
 import argparse
+import functools
 import importlib.util
 import logging
 import os
@@ -77,14 +78,28 @@ def _example_common():
     return module
 
 
-def jax_model(name, size, seed=0, **kw):
-    """The JAX model, Xavier from ``seed``, with random BatchNorm arrays."""
+def jax_model(name, size, seed=0, training=False, forward=True, **kw):
+    """The JAX model, Xavier from ``seed``, with random BatchNorm arrays.
+    Its deferred initialization runs a forward of a batch of two (in
+    training mode with ``training``), the batch and mode of the forwards
+    that the tests then take, whose operations it compiles.  Without
+    ``forward`` the deferred shapes are set from the port's model instead,
+    array by array (the two list them in one order), and nothing is
+    compiled for a forward the test does not take."""
     mx.random.seed(seed)
     net = jvision.get_model(name, **kw)
+    if not forward:
+        shapes = [t.shape for t in vision.get_model(
+            name, device="cpu", **kw).state_dict().values()]
+        for p, shape in zip(net.collect_params().values(), shapes):
+            p.shape = tuple(shape)
     net.initialize(mx.init.Xavier())
-    shape = (1, size, size, 3) if kw.get("layout") == "NHWC" \
-        else (1, 3, size, size)
-    net(mx.nd.zeros(shape))   # finish deferred init
+    shape = (2, size, size, 3) if kw.get("layout") == "NHWC" \
+        else (2, 3, size, size)
+    if forward:
+        with mx.autograd.train_mode() if training \
+                else mx.autograd.predict_mode():
+            net(mx.nd.zeros(shape))   # finish deferred init
     rng = np.random.RandomState(seed + 1)
     for pname, p in net.collect_params().items():
         if pname.endswith(("gamma", "running_var")):
@@ -92,6 +107,25 @@ def jax_model(name, size, seed=0, **kw):
         elif pname.endswith(("beta", "running_mean")):
             p.set_data(mx.nd.array(rng.uniform(-0.5, 0.5, p.shape)))
     return net
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_jax_model(name, size, classes, layout, thumbnail):
+    return jax_model(name, size, classes=classes, layout=layout,
+                     thumbnail=thumbnail)
+
+
+def shared_jax_model(name, size, classes=1000, layout="NCHW",
+                     thumbnail=False):
+    """:func:`jax_model` built once per module for the tests that only run
+    it in inference or read its arrays: none of them changes it."""
+    return _shared_jax_model(name, size, classes, layout, thumbnail)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_shared_jax_models():
+    yield
+    _shared_jax_model.cache_clear()
 
 
 def arrays_of(net):
@@ -107,7 +141,7 @@ def port_model(name, arrays, **kw):
     ("resnet18_v1", 10, "NCHW"), ("resnet50_v1", 1000, "NCHW"),
     ("resnet18_v2", 10, "NCHW"), ("resnet18_v2", 10, "NHWC")])
 def test_forward_matches_jax(name, classes, layout):
-    jnet = jax_model(name, 32, classes=classes, layout=layout)
+    jnet = shared_jax_model(name, 32, classes=classes, layout=layout)
     tnet = port_model(name, arrays_of(jnet), classes=classes, layout=layout)
     x = np.random.RandomState(2).uniform(-1, 1, (2, 3, 32, 32)).astype(
         np.float32)
@@ -125,7 +159,8 @@ def test_nhwc_matches_nchw_in_the_port():
     """The channel-last resnet50_v1 with the channel-first one's weights
     (conv weights permuted to (O, kH, kW, I)) on the permuted input, in
     inference and in training (batch statistics, their running fold)."""
-    cf = port_model("resnet50_v1", arrays_of(jax_model("resnet50_v1", 32)))
+    cf = port_model("resnet50_v1",
+                    arrays_of(shared_jax_model("resnet50_v1", 32)))
     cl = vision.resnet50_v1(layout="NHWC", device="cpu")
     with torch.no_grad():
         for (name, a), b in zip(cf.state_dict().items(),
@@ -149,7 +184,7 @@ def test_nhwc_matches_nchw_in_the_port():
 def test_converter_round_trip_resnet50_v1():
     """299 arrays: 53 conv weights, 32 conv biases, 53 x 4 BatchNorm
     arrays and the dense pair; 193 of them train."""
-    arrays = arrays_of(jax_model("resnet50_v1", 32))
+    arrays = arrays_of(shared_jax_model("resnet50_v1", 32))
     tnet = port_model("resnet50_v1", arrays)
     state = tnet.state_dict()
     assert len(arrays) == len(state) == 299
@@ -164,7 +199,7 @@ def test_converter_round_trip_resnet50_v1():
 @pytest.mark.parametrize("name,layout", [("resnet18_v1", "NHWC"),
                                          ("resnet34_v2", "NCHW")])
 def test_converter_carries_each_version_and_layout(name, layout):
-    arrays = arrays_of(jax_model(name, 32, layout=layout))
+    arrays = arrays_of(jax_model(name, 32, layout=layout, forward=False))
     tnet = port_model(name, arrays, layout=layout)
     state = tnet.state_dict()
     assert len(state) == len(arrays)
@@ -173,7 +208,7 @@ def test_converter_carries_each_version_and_layout(name, layout):
 
 
 def test_converter_raises_on_missing_extra_or_misshaped_arrays():
-    arrays = arrays_of(jax_model("resnet18_v1", 32))
+    arrays = arrays_of(jax_model("resnet18_v1", 32, forward=False))
     tnet = vision.resnet18_v1(device="cpu")
     missing = dict(arrays)
     del missing[next(n for n in arrays
@@ -213,7 +248,7 @@ def test_get_model_and_pretrained():
 
 
 def test_thumbnail_model_matches_jax():
-    jnet = jax_model("resnet18_v1", 16, classes=10, thumbnail=True)
+    jnet = shared_jax_model("resnet18_v1", 16, classes=10, thumbnail=True)
     tnet = port_model("resnet18_v1", arrays_of(jnet), classes=10,
                       thumbnail=True)
     x = np.random.RandomState(4).uniform(-1, 1, (2, 3, 16, 16)).astype(
@@ -252,7 +287,7 @@ def test_xavier_draws_channel_last_weights_in_canonical_order():
 def _args(**kw):
     args = dict(network="resnet50_v1", num_classes=1000, num_epochs=1, lr=LR,
                 optimizer="sgd", mom=MOM, wd=WD, batch_size=2,
-                kv_store="device", disp_batches=1)
+                kv_store="device", disp_batches=1, dtype="float32")
     args.update(kw)
     return argparse.Namespace(**args)
 
@@ -271,16 +306,6 @@ def test_synthetic_set_is_the_examples():
                           Y)
 
 
-def _fit_pair():
-    """JAX resnet50_v1 and the port's with its weights, and the first two
-    B = 2, 64 x 64 batches of the synthetic set."""
-    jnet = jax_model("resnet50_v1", 64)
-    arrays = arrays_of(jnet)
-    tnet = port_model("resnet50_v1", arrays)
-    batches = ic.get_synthetic_iter(_args(), (3, 64, 64), "cpu")[:2]
-    return jnet, tnet, mxnet_pairs(tnet, arrays), batches
-
-
 def _jax_step(net, x, y, trainer=None):
     """The JAX loop's forward and backward, and its update if a
     ``trainer`` is given; returns the per-sample loss."""
@@ -293,11 +318,36 @@ def _jax_step(net, x, y, trainer=None):
     return loss.asnumpy()
 
 
-def test_fit_gluon_two_steps_match_jax_trainer(monkeypatch):
-    jnet, tnet, pairs, batches = _fit_pair()
+@pytest.fixture(scope="module")
+def jax_fit():
+    """The JAX Trainer loop's two SGD steps of resnet50_v1 on the first
+    two B = 2, 64 x 64 batches of the synthetic set, recorded once for the
+    tests that hold the port to them: the starting arrays, and after each
+    step its loss, the gradients and every array; the momenta at the
+    end."""
+    jnet = jax_model("resnet50_v1", 64, training=True)
+    arrays = arrays_of(jnet)
+    batches = ic.get_synthetic_iter(_args(), (3, 64, 64), "cpu")[:2]
     jtrainer = mx.gluon.Trainer(jnet.collect_params(), "sgd",
                                 {"learning_rate": LR, "momentum": MOM,
                                  "wd": WD})
+    jparams = jnet.collect_params()
+    trainable = [n for n, p in jparams.items() if p.grad_req != "null"]
+    steps = []
+    for x, y in batches:
+        loss = _jax_step(jnet, x, y, jtrainer)
+        steps.append((loss, {n: jparams[n].grad().asnumpy()
+                             for n in trainable}, arrays_of(jnet)))
+    states = jtrainer._updaters[0].states
+    momenta = {n: states[i].asnumpy() for i, n in enumerate(jparams)
+               if n in trainable}
+    return arrays, batches, trainable, steps, momenta
+
+
+def test_fit_gluon_two_steps_match_jax_trainer(monkeypatch, jax_fit):
+    arrays, batches, trainable, steps, jmomenta = jax_fit
+    tnet = port_model("resnet50_v1", arrays)
+    pairs = mxnet_pairs(tnet, arrays)
     # the port runs its own fit_gluon from the carried weights; each step is
     # recorded as it ends
     monkeypatch.setattr(initializer, "initialize", lambda net, *a, **k: net)
@@ -314,11 +364,8 @@ def test_fit_gluon_two_steps_match_jax_trainer(monkeypatch):
     monkeypatch.setattr(ic, "train_step", recording_step)
     assert ic.fit_gluon(_args(), tnet, batches) is tnet
     assert len(seen) == 2
-    jparams = jnet.collect_params()
-    trainable = [n for n, p in jparams.items() if p.grad_req != "null"]
     grad_gaps, jax_weights = [], []
-    for step, (x, y) in enumerate(batches):
-        jloss = _jax_step(jnet, x, y, jtrainer)
+    for step, (jloss, jgrads, jarrays) in enumerate(steps):
         tloss, _, tgrads, _ = seen[step]
         if step == 0:
             assert np.abs(tloss - jloss).max() < LOSS_BOUND
@@ -326,7 +373,7 @@ def test_fit_gluon_two_steps_match_jax_trainer(monkeypatch):
             assert np.all(np.isfinite(tloss))
         gaps = {}
         for n in trainable:
-            want = jparams[n].grad().asnumpy()
+            want = jgrads[n]
             got = tgrads[pairs[n]].numpy()
             gaps[n] = np.abs(got.astype(np.float64) - want)
             if step == 0:
@@ -334,45 +381,45 @@ def test_fit_gluon_two_steps_match_jax_trainer(monkeypatch):
                 assert gap <= GRAD_REL * np.linalg.norm(want) + GRAD_ABS, (
                     n, gap, np.linalg.norm(want))
         grad_gaps.append(gaps)
-        jax_weights.append({n: p.data().asnumpy().astype(np.float64)
-                            for n, p in jparams.items()})
+        jax_weights.append({n: a.astype(np.float64)
+                            for n, a in jarrays.items()})
     # SGD with momentum: mom_t = MOM mom_{t-1} - LR (g_t / B + WD w_{t-1}),
     # w_t = w_{t-1} + mom_t.  A gap d_t in the summed gradient moves mom_t
     # by LR d_t / B and w_t with it, carried forward by MOM
     trainer = seen[-1][1]
-    jstates = jtrainer._updaters[0].states
-    jindex = {n: i for i, n in enumerate(jparams)}
     tindex = {n: i for i, (n, _) in enumerate(tnet.named_parameters())}
     state = tnet.state_dict()
+    final = steps[-1][2]
     for n in trainable:
         d1, d2 = (gaps[n] / len(batches[0][0]) for gaps in grad_gaps)
         w1 = jax_weights[0][n]
         mom_bound = LR * (MOM * d1 + d2) + LR * WD * LR * d1
         w_bound = LR * d1 + mom_bound
-        want_w = jparams[n].data().asnumpy()
+        want_w = final[n]
         got_w = state[pairs[n]].numpy()
         assert np.all(np.abs(got_w - want_w)
                       <= w_bound + W_RTOL * np.abs(want_w) + W_ATOL), n
-        want_m = jstates[jindex[n]].asnumpy()
+        want_m = jmomenta[n]
         got_m = trainer._updater.states[tindex[pairs[n]]].numpy()
         assert np.all(np.abs(got_m - want_m)
                       <= mom_bound + W_RTOL * np.abs(w1) + W_ATOL), n
-    for n, p in jparams.items():
+    for n, want in final.items():
         if n.endswith(("running_mean", "running_var")):
-            want = p.data().asnumpy()
             got = state[pairs[n]].numpy()
             assert np.all(np.isfinite(got))
             assert np.abs(got - want).max() <= 0.25 * np.abs(want).max(), n
 
 
-def test_resnet50_fp32_gradients_are_as_accurate_as_jax():
+def test_resnet50_fp32_gradients_are_as_accurate_as_jax(jax_fit):
     """Why GRAD_REL: against an fp64 run of the port, both packages' fp32
     step-1 gradients lie within FP64_REL of it, leaf by leaf, and the
     port's median leaf is no farther than twice the JAX package's."""
-    jnet, tnet, pairs, batches = _fit_pair()
+    arrays, batches, _, steps, _ = jax_fit
+    tnet = port_model("resnet50_v1", arrays)
+    pairs = mxnet_pairs(tnet, arrays)
+    jgrads = steps[0][1]
     x, y = batches[0]
-    _jax_step(jnet, x, y)
-    t64 = port_model("resnet50_v1", arrays_of(jnet)).double()
+    t64 = port_model("resnet50_v1", arrays).double()
 
     def port_grads(net, dtype):
         with autograd.record():
@@ -383,13 +430,12 @@ def test_resnet50_fp32_gradients_are_as_accurate_as_jax():
 
     g32, g64 = port_grads(tnet, torch.float32), port_grads(t64, torch.float64)
     port_rel, jax_rel = {}, {}
-    for n, p in jnet.collect_params().items():
-        if p.grad_req == "null" or n.endswith("bias") and "dense" not in n:
+    for n, jgrad in jgrads.items():
+        if n.endswith("bias") and "dense" not in n:
             continue
         truth = g64[pairs[n]]
         scale = truth.norm().item()
-        jax_rel[n] = np.linalg.norm(p.grad().asnumpy() - truth.numpy()) \
-            / scale
+        jax_rel[n] = np.linalg.norm(jgrad - truth.numpy()) / scale
         port_rel[n] = (g32[pairs[n]] - truth).norm().item() / scale
     print("worst leaf: port %.3g (%s), JAX %.3g (%s); median: port %.3g, "
           "JAX %.3g" % (

@@ -235,8 +235,22 @@ def test_sgd_with_a_scheduler_and_multipliers_matches_jax():
 
 
 def test_multi_precision_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="multi_precision"):
-        topt.create("sgd", multi_precision=True)
+    """``multi_precision=True`` once raised here; it is ported now, and on
+    fp32 weights it is the plain update, bit for bit
+    (tests/test_torch_multi_precision.py holds it on bf16 weights)."""
+    rng = np.random.RandomState(6)
+    w0 = rng.normal(0, 1, (5, 3)).astype(np.float32)
+    gs = [rng.normal(0, 1, w0.shape).astype(np.float32) for _ in range(3)]
+    for name in sorted(OPTIMIZERS):
+        results = []
+        for mp in (False, True):
+            upd = topt.get_updater(topt.create(name, multi_precision=mp,
+                                               **OPTIMIZERS[name]))
+            w = torch.tensor(w0)
+            for g in gs:
+                upd(0, torch.tensor(g), w)
+            results.append(w)
+        assert torch.equal(*results), name
 
 
 # ---------------------------------------------------------------- (d)
