@@ -621,7 +621,7 @@ def train(cuda_ops, dev, card, bf16=False):
           step_ms=json.dumps(step_ms), median_step_ms=median_ms,
           tokens_per_s=TRAIN_B * MAX_LEN / (median_ms / 1e3),
           peak_memory_gb=peak_gb, card='"%s"' % card)
-    return launches, (net, trainer, ce, batches[-1], pos)
+    return launches, (net, trainer, ce, batches[-1], pos), losses
 
 
 def train_profile(net, trainer, ce, batch, pos, card, label="train_profile"):
@@ -1337,6 +1337,434 @@ def lm_bf16_vs_cpu(cuda_ops, dev):
              "norm; bound %g" % (readings["bf16"], LM_BF16_GRAD_REL_BOUND))
 
 
+# ---------------------------------------------------------------------------
+# the imperative API (mx.nd): its ops, and the LM's step written in them
+
+ND_LM_B, ND_LM_T = 2, 256   # nd_ops' LM activations: VS_CPU's batch
+# ResNet-50's stage-1 bottleneck: batch, side, channels in and out
+ND_RES = (32, 56, 64, 256)
+
+
+def nd_cases():
+    """(op, inputs, attrs, differentiable inputs, tolerance) for every
+    canonical op of the registry, at one real shape: ResNet-50's stage-1
+    bottleneck (B = 32, 56 x 56, 64 and 256 channels, and its 2048 -> 1000
+    head), and the LM at the bench widths over VS_CPU's batch.  Inputs are
+    numpy arrays from a seed.  Tolerances: FP32_BOUND's rtol for the
+    elementwise, shape and update ops; SERVE_ATOL/RTOL for the reductions,
+    GEMMs, convolutions and normalizations (fp32 sums reordered); the
+    kernel's FP32_BOUND for attention.  Input gradients, sums reordered
+    on the card (a broadcast input's, a weight's over the batch), as
+    train_vs_cpu holds a leaf: the gap's norm within GRAD_REL_BOUND of the
+    gradient's; attention's at GRAD_BOUND."""
+    rng = np.random.RandomState(0)
+
+    def f(*shape, low=-2.0, high=2.0):
+        return rng.uniform(low, high, shape).astype(np.float32)
+
+    B, S, C, C4 = ND_RES
+    Bt, T = ND_LM_B, ND_LM_T
+    elem = (FP32_BOUND, 1e-6)
+    gemm = (SERVE_RTOL, SERVE_ATOL)
+    act, pos = f(Bt, T, DIM), f(Bt, T, DIM, low=0.3, high=2.0)
+    row = f(1, 1, DIM, low=0.5, high=1.5)
+    img, wide = f(B, C, S, S), f(B, C4, S, S)
+    cases = [(n, [act], {}, [0], elem) for n in (
+        "abs", "sign", "round", "ceil", "floor", "square", "exp", "tanh",
+        "negative", "sigmoid", "relu", "identity", "BlockGrad",
+        "make_loss", "zeros_like", "ones_like")]
+    cases += [(n, [pos], {}, [0], elem) for n in ("sqrt", "log")]
+    cases.append(("Cast", [act], {"dtype": "bfloat16"}, [0], elem))
+    for n in ("broadcast_add", "broadcast_sub", "broadcast_mul",
+              "broadcast_div", "broadcast_power",
+              "broadcast_maximum", "broadcast_minimum", "broadcast_hypot",
+              "broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+              "broadcast_greater_equal", "broadcast_lesser",
+              "broadcast_lesser_equal", "broadcast_logical_and",
+              "broadcast_logical_or", "broadcast_logical_xor", "arctan2",
+              "ldexp"):
+        cases.append((n, [pos, row], {}, [0, 1], elem))
+    # a remainder jumps where the quotient is whole: keep the inputs off it
+    cases.append(("broadcast_mod", [row * (rng.randint(0, 3, act.shape)
+                                            + rng.uniform(0.1, 0.9,
+                                                          act.shape)
+                                            ).astype(np.float32), row],
+                  {}, [0, 1], elem))
+    cases.append(("_mod_scalar", [1.5 * (rng.randint(0, 3, act.shape)
+                                         + rng.uniform(0.1, 0.9, act.shape)
+                                         ).astype(np.float32)],
+                  {"scalar": 1.5}, [0], elem))
+    for n in ("_plus_scalar", "_minus_scalar", "_mul_scalar", "_div_scalar",
+              "_power_scalar", "_maximum_scalar",
+              "_minimum_scalar", "_hypot_scalar", "_equal_scalar",
+              "_not_equal_scalar", "_greater_scalar", "_greater_equal_scalar",
+              "_lesser_scalar", "_lesser_equal_scalar", "_logical_and_scalar",
+              "_logical_or_scalar", "_logical_xor_scalar"):
+        cases.append((n, [pos], {"scalar": 1.5}, [0], elem))
+    qkv = f(Bt, T, 3 * DIM)
+    heads = f(Bt, HEADS, T, DIM // HEADS)
+    cases += [
+        ("Reshape", [qkv[..., :DIM]], {"shape": (0, 0, HEADS, -1)}, [0],
+         elem),
+        ("Flatten", [f(B, 2048, 1, 1)], {}, [0], elem),
+        ("transpose", [heads], {"axes": (0, 2, 1, 3)}, [0], elem),
+        ("expand_dims", [act], {"axis": 1}, [0], elem),
+        ("SliceChannel", [qkv], {"num_outputs": 3, "axis": -1}, [0], elem),
+        ("Concat", [act, act], {"dim": 1}, [0, 1], elem),
+        ("stack", [act, act], {"axis": 0}, [0, 1], elem),
+        ("Embedding", [rng.randint(0, VOCAB, (Bt, T)).astype(np.int32),
+                       f(VOCAB, DIM, low=-0.1, high=0.1)], {}, [1], gemm),
+        ("one_hot", [rng.randint(0, 1000, B).astype(np.int32)],
+         {"depth": 1000}, [], elem),
+        ("dot", [act.reshape(-1, DIM), f(DIM, 3 * DIM, low=-0.1,
+                                         high=0.1)], {}, [0, 1], gemm),
+        ("batch_dot", [heads.reshape(-1, T, DIM // HEADS),
+                       heads.reshape(-1, T, DIM // HEADS)],
+         {"transpose_b": True}, [0, 1], gemm),
+    ]
+    near_one = f(Bt, T, DIM, low=0.9, high=1.1)   # a product stays finite
+    for n in ("sum", "mean", "prod", "nansum", "nanprod", "max", "min"):
+        cases.append((n, [near_one if n.endswith("prod") else act],
+                       {"axis": -1}, [0], gemm))
+    logits = f(Bt * T, VOCAB)
+    labels = rng.randint(0, VOCAB, Bt * T).astype(np.float32)
+    cases += [
+        ("argmax", [logits], {"axis": 1}, [], elem),
+        ("pick", [logits, labels], {"axis": 1}, [0], elem),
+        ("FullyConnected", [act, f(3 * DIM, DIM, low=-0.05, high=0.05)],
+         {"no_bias": True, "flatten": False}, [0, 1], gemm),
+        ("FullyConnected", [f(B, 2048), f(1000, 2048, low=-0.05, high=0.05),
+                            f(1000)], {}, [0, 1, 2], gemm),
+        ("Convolution", [img, f(C4, C, 1, 1, low=-0.2, high=0.2)],
+         {"kernel": (1, 1), "no_bias": True}, [0, 1], gemm),
+        ("Convolution", [img, f(C, C, 3, 3, low=-0.1, high=0.1)],
+         {"kernel": (3, 3), "pad": (1, 1), "no_bias": True}, [0, 1], gemm),
+        ("Convolution", [np.ascontiguousarray(img.transpose(0, 2, 3, 1)),
+                         f(C, 3, 3, C, low=-0.1, high=0.1), f(C)],
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+          "layout": "NHWC"}, [0, 1, 2], gemm),
+        ("Pooling", [img], {"kernel": (3, 3), "stride": (2, 2),
+                            "pad": (1, 1)}, [0], elem),
+        ("Pooling", [wide], {"global_pool": True, "pool_type": "avg",
+                             "kernel": (1, 1)}, [0], gemm),
+        ("BatchNorm", [wide, f(C4, low=0.5, high=1.5), f(C4), f(C4),
+                       f(C4, low=0.5, high=1.5)],
+         {"fix_gamma": False, "eps": 1e-5, "_training": True}, [0, 1, 2],
+         gemm),
+        ("LayerNorm", [act, f(DIM, low=0.5, high=1.5), f(DIM)], {},
+         [0, 1, 2], gemm),
+        ("Activation", [wide], {"act_type": "relu"}, [0], elem),
+        ("softmax", [logits], {}, [0], gemm),
+        ("log_softmax", [logits], {}, [0], gemm),
+        ("SoftmaxOutput", [f(B, 1000), rng.randint(0, 1000, B).astype(
+            np.float32)], {"normalization": "batch"}, [0], gemm),
+        ("softmax_cross_entropy", [logits, labels], {}, [0], gemm),
+        ("_contrib_flash_attention", [heads, heads, heads],
+         {"causal": True}, [0, 1, 2], (0.0, FP32_BOUND, GRAD_BOUND)),
+    ]
+    w, g = f(3 * DIM, DIM), f(3 * DIM, DIM)
+    s1, s2 = f(3 * DIM, DIM), f(3 * DIM, DIM, low=0, high=1)
+    common = {"lr": 0.1, "wd": 1e-4, "rescale_grad": 0.5,
+              "clip_gradient": 0.3}
+    cases += [
+        ("sgd_update", [w, g], common, [], elem),
+        ("sgd_mom_update", [w, g, s1], dict(common, momentum=0.9), [], elem),
+        ("mp_sgd_update", [w, g, s1], common, [], elem),
+        ("mp_sgd_mom_update", [w, g, s1, s2], dict(common, momentum=0.9),
+         [], elem),
+        ("adam_update", [w, g, s1, s2], dict(common, lr=TRAIN_LR), [],
+         elem),
+    ]
+    return cases
+
+
+def nd_run(name, inputs, attrs, grads, device, seed):
+    """``nd.<name>`` on ``device``: its outputs and the gradients of the
+    inputs at ``grads`` under head gradients drawn from ``seed``, on the
+    CPU.  ``_training`` in ``attrs`` records in training mode."""
+    import mxnet_tpu_torch as mx
+
+    arrays = [mx.nd.array(a, ctx=device, dtype=a.dtype) for a in inputs]
+    for i in grads:
+        arrays[i].attach_grad()
+    training = attrs.pop("_training", False)
+    with mx.autograd.record(train_mode=training):
+        out = getattr(mx.nd, name)(*arrays, **attrs)
+    outs = out if isinstance(out, list) else [out]
+    if name == "BatchNorm":
+        outs = outs[:1]   # MXNet passes no gradient through its statistics
+    rng = np.random.RandomState(seed)
+    pairs = [(o, mx.nd.array(rng.normal(0, 1, o.shape).astype(np.float32),
+                             ctx=device, dtype=o.dtype))
+             for o in outs if o._data.requires_grad]
+    if pairs and grads:
+        mx.autograd.backward([o for o, _ in pairs], [h for _, h in pairs])
+    return ([o.astype("float32").asnumpy() for o in outs],
+            [arrays[i].grad.asnumpy() for i in grads])
+
+
+def nd_ops(dev):
+    """Phase: every canonical op of the registry through ``mx.nd`` on the
+    card against the same call on the CPU (the port's CPU path), values
+    and input gradients under seeded head gradients."""
+    from mxnet_tpu_torch.ops.registry import get_op, list_ops
+
+    t0 = time.time()
+    worst, worst_rel, seen = {}, {}, set()
+    for seed, (name, inputs, attrs, grads, tol) in enumerate(nd_cases()):
+        seen.add(get_op(name))
+        want = nd_run(name, inputs, dict(attrs), grads, "cpu", seed)
+        got = nd_run(name, inputs, dict(attrs), grads, dev, seed)
+        for k, (g, w) in enumerate(zip(got[0], want[0])):
+            if g.shape != w.shape:
+                fail("nd_ops %s output %d: shape %s on the card, %s on the "
+                     "CPU" % (name, k, g.shape, w.shape))
+            finite = np.isfinite(w)
+            err = float(np.max(np.abs(g - w)[finite], initial=0.0))
+            worst[name] = max(worst.get(name, 0.0), err)
+            if not np.allclose(g, w, rtol=tol[0], atol=tol[1],
+                               equal_nan=True):
+                fail("nd_ops %s output %d: card vs CPU max abs err %.3g "
+                     "over rtol %g atol %g" % (name, k, err, *tol[:2]))
+        for i, g, w in zip(grads, got[1], want[1]):
+            if len(tol) > 2:   # attention: the kernel's gradient bound
+                err = float(np.abs(g - w).max())
+                ok = err < tol[2]
+            else:   # a leaf's relative gap, as train_vs_cpu holds it
+                w = w.astype(np.float64)
+                err = float(np.linalg.norm(g - w))
+                ok = err <= GRAD_REL_BOUND * np.linalg.norm(w) \
+                    and np.isfinite(np.linalg.norm(w))
+                err /= max(float(np.linalg.norm(w)), 1e-30)
+            worst_rel[name] = max(worst_rel.get(name, 0.0), err)
+            if not ok:
+                fail("nd_ops %s: gradient of input %d, card vs CPU %.3g "
+                     "(relative to its norm; bound %g)"
+                     % (name, i, err, tol[2] if len(tol) > 2
+                        else GRAD_REL_BOUND))
+    missing = {n for n in list_ops() if get_op(n) not in seen}
+    if missing:
+        fail("nd_ops covers no case of %s" % sorted(missing))
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    top_grad = sorted(worst_rel.items(), key=lambda kv: -kv[1])[:6]
+    phase("nd_ops", ops=len(worst), registered_names=len(list_ops()),
+          shapes="resnet50_stage1=%s lm=%s" % (ND_RES, (ND_LM_B, ND_LM_T,
+                                                        DIM)),
+          worst_abs_err=json.dumps(top),
+          worst_grad_rel_err=json.dumps(top_grad),
+          grad_rel_bound=GRAD_REL_BOUND,
+          seconds=round(time.time() - t0, 2))
+
+
+def nd_params(net, dev):
+    """The Gluon model's parameters as NDArrays on ``dev`` (copies) that
+    take gradients, under the same names."""
+    import mxnet_tpu_torch as mx
+
+    params = {n: mx.nd.array(p.detach(), ctx=dev)
+              for n, p in net.named_parameters()}
+    for w in params.values():
+        w.attach_grad()
+    return params
+
+
+def nd_batches(batches):
+    import mxnet_tpu_torch as mx
+
+    return [(mx.nd.NDArray(x), mx.nd.NDArray(y)) for x, y in batches]
+
+
+def nd_lm(cuda_ops, dev, card, train_losses):
+    """Phase: the full-width LM's training step written in ``mx.nd`` ops
+    (``models/transformer_lm_nd.py``: ``nd.FullyConnected``,
+    ``nd.LayerNorm``, ``nd._contrib_flash_attention`` ...,
+    ``autograd.backward``, ``nd.adam_update``), TRAIN_STEPS Adam steps at
+    TRAIN_LR from the weights and batches of the ``train`` phase.  Holds
+    step 1's loss and every leaf's gradient to the Gluon path's on the card
+    (GRAD_REL_BOUND) and the kernel's launches to one a layer per
+    forward; prints the loss curve beside ``train``'s, the median step,
+    tokens/s, peak memory, the invokes of a step and the host's time per
+    invoke."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import transformer_lm_nd as lm_nd
+    from mxnet_tpu_torch.ops import registry
+
+    net = new_lm(dev, DEPTH, 0)
+    batches = lm_batches(np.random.RandomState(0), TRAIN_STEPS + 1,
+                         TRAIN_B, MAX_LEN, dev)
+    pos = torch.arange(MAX_LEN, device=dev,
+                       dtype=torch.int32).expand(TRAIN_B, MAX_LEN)
+    gluon_loss = forward_backward(net, SoftmaxCrossEntropyLoss(),
+                                  *batches[0], pos).item()
+    gluon_grads = {n: p.grad.detach().clone()
+                   for n, p in net.named_parameters()}
+    params = nd_params(net, dev)
+    del net
+    states = lm_nd.adam_states(mx, params)
+    nd_pos = mx.nd.NDArray(pos)
+    data = nd_batches(batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(cuda_ops)
+    losses, step_ms, launches_per_step = [], [], []
+    for t, (x, y) in enumerate(data[:TRAIN_STEPS], start=1):
+        before = cuda_ops.flash_attention.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = lm_nd.train_step(mx, params, states, t, x, y, nd_pos, HEADS,
+                                TRAIN_LR)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss.asscalar()))
+        step_ms.append(start.elapsed_time(end))
+        launches_per_step.append(cuda_ops.flash_attention.launches - before)
+        if t == 1:
+            rel = leaf_rel_errs({n: w.grad._data for n, w in
+                                 params.items()},
+                                {n: g.cpu() for n, g in gluon_grads.items()})
+            del gluon_grads
+    launches = cuda_ops.flash_attention.launches
+    by_dtype = dict(cuda_ops.flash_attention.launches_by_dtype)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(np.isfinite(losses)):
+        fail("nd_lm losses not finite: %s" % losses)
+    if launches_per_step != [DEPTH] * TRAIN_STEPS \
+            or by_dtype["float32"] != launches:
+        fail("nd_lm: flash_attention launched %s times a step (%s), not "
+             "once a layer (%d) in fp32" % (launches_per_step, by_dtype,
+                                           DEPTH))
+    if not abs(losses[0] - gluon_loss) <= SERVE_ATOL + SERVE_RTOL * abs(
+            gluon_loss):
+        fail("nd_lm step-1 loss %.6f, Gluon path %.6f" % (losses[0],
+                                                          gluon_loss))
+    worst = max(rel, key=rel.get)
+    if rel[worst] > GRAD_REL_BOUND:
+        fail("nd_lm step-1 gradient of %s is %.3g from the Gluon path's, "
+             "relative to its norm; bound %g" % (worst, rel[worst],
+                                                 GRAD_REL_BOUND))
+    # one more step, split and counted: the forward's host time, and the
+    # invokes of the forward and of the update (the counting wraps
+    # Op.apply outside the timed steps)
+    calls = [0]
+    apply = registry.Op.apply
+
+    def counted(self, attrs, *tensors):
+        calls[0] += 1
+        return apply(self, attrs, *tensors)
+
+    x, y = data[TRAIN_STEPS]
+    registry.Op.apply = counted
+    try:
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        with mx.autograd.record():
+            out = lm_nd.loss(mx.nd, lm_nd.forward(mx.nd, params, x, nd_pos,
+                                                  HEADS), y)
+        h1 = time.perf_counter()
+        fwd_invokes = calls[0]
+        out.backward()
+        torch.cuda.synchronize()
+        h2 = time.perf_counter()
+        for name, w in params.items():
+            m, v = states[name]
+            mx.nd.adam_update(w, w.grad, m, v, out=w, lr=TRAIN_LR)
+        h3 = time.perf_counter()
+        torch.cuda.synchronize()
+    finally:
+        registry.Op.apply = apply
+    update_invokes = calls[0] - fwd_invokes
+    # the dispatch's own cost: nd's a + b against torch's on small tensors
+    a = mx.nd.ones((64,), ctx=dev)
+    n = 2000
+    for fn in (lambda: a + a, lambda: a._data + a._data):
+        fn()
+    torch.cuda.synchronize()
+    h4 = time.perf_counter()
+    for _ in range(n):
+        a + a
+    h5 = time.perf_counter()
+    for _ in range(n):
+        a._data + a._data
+    h6 = time.perf_counter()
+    torch.cuda.synchronize()
+    median_ms = float(np.median(step_ms[1:]))
+    phase("nd_lm", batch=(TRAIN_B, MAX_LEN), steps=TRAIN_STEPS,
+          losses=json.dumps(losses), train_losses=json.dumps(train_losses),
+          max_loss_gap_to_train=max(abs(a_ - b_) for a_, b_ in
+                                    zip(losses, train_losses)),
+          gluon_step1_loss=gluon_loss,
+          step1_grad_max_rel_err_vs_gluon=rel[worst], its_leaf=worst,
+          median_leaf_rel_err=float(np.median(list(rel.values()))),
+          rel_bound=GRAD_REL_BOUND, launches=launches,
+          launches_per_step=json.dumps(launches_per_step),
+          step_ms=json.dumps(step_ms), median_step_ms=median_ms,
+          tokens_per_s=TRAIN_B * MAX_LEN / (median_ms / 1e3),
+          peak_memory_gb=peak_gb, forward_invokes=fwd_invokes,
+          update_invokes=update_invokes,
+          invokes_per_step=fwd_invokes + update_invokes,
+          forward_host_ms=(h1 - h0) * 1e3,
+          forward_host_us_per_invoke=(h1 - h0) * 1e6 / fwd_invokes,
+          backward_ms=(h2 - h1) * 1e3,
+          update_host_ms=(h3 - h2) * 1e3,
+          update_host_us_per_invoke=(h3 - h2) * 1e6 / update_invokes,
+          nd_add_host_us=(h5 - h4) * 1e6 / n,
+          torch_add_host_us=(h6 - h5) * 1e6 / n,
+          invoke_overhead_us=((h5 - h4) - (h6 - h5)) * 1e6 / n,
+          card='"%s"' % card)
+    return launches
+
+
+def nd_lm_vs_cpu(cuda_ops, dev):
+    """Phase: the nd-written LM step at VS_CPU's sizes (depth 2, B = 2,
+    T = 256) on the card and on the CPU from the same weights and batches:
+    per-step losses at SERVE_ATOL/RTOL, step-1 gradients per leaf at
+    GRAD_REL_BOUND, one kernel launch a layer a step on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import transformer_lm_nd as lm_nd
+
+    depth, B, T, steps = VS_CPU
+    net = new_lm("cpu", depth, 1)
+    batches = lm_batches(np.random.RandomState(1), steps, B, T, "cpu")
+    pos = torch.arange(T, dtype=torch.int32).expand(B, T)
+    runs = {}
+    for label, device in (("cpu", "cpu"), ("card", dev)):
+        params = nd_params(net, device)
+        states = lm_nd.adam_states(mx, params)
+        before = cuda_ops.flash_attention.launches
+        losses = []
+        for t, (x, y) in enumerate(batches, start=1):
+            loss = lm_nd.train_step(
+                mx, params, states, t, mx.nd.NDArray(x.to(device)),
+                mx.nd.NDArray(y.to(device)), mx.nd.NDArray(pos.to(device)),
+                HEADS, TRAIN_LR)
+            losses.append(float(loss.asscalar()))
+            if t == 1:
+                grads = {n: w.grad._data.cpu() for n, w in params.items()}
+        runs[label] = (losses, grads,
+                       cuda_ops.flash_attention.launches - before)
+    (want, want_grads, _), (got, got_grads, launches) = (runs["cpu"],
+                                                         runs["card"])
+    for step, (g, w) in enumerate(zip(got, want)):
+        if not abs(g - w) <= SERVE_ATOL + SERVE_RTOL * abs(w):
+            fail("nd_lm_vs_cpu step %d loss on the card %.6f vs CPU %.6f"
+                 % (step, g, w))
+    if launches != depth * steps:
+        fail("nd_lm_vs_cpu launched the kernel %d times, not %d"
+             % (launches, depth * steps))
+    rel = leaf_rel_errs(got_grads, want_grads)
+    worst = max(rel, key=rel.get)
+    if rel[worst] > GRAD_REL_BOUND:
+        fail("nd_lm_vs_cpu step-1 gradient of %s is %.3g from the CPU's; "
+             "bound %g" % (worst, rel[worst], GRAD_REL_BOUND))
+    phase("nd_lm_vs_cpu", depth=depth, batch=(B, T), steps=steps,
+          losses=json.dumps(list(zip(got, want))),
+          step1_grad_max_rel_err=rel[worst], its_leaf=worst,
+          median_leaf_rel_err=float(np.median(list(rel.values()))),
+          rel_bound=GRAD_REL_BOUND, launches=launches)
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -1366,11 +1794,11 @@ def main():
     numbers = check_kernel(cuda_ops, dev)
     numbers.update(kernel_grad(cuda_ops, dev))
     launches_serve = serve(cuda_ops, dev, smi)
-    launches_train, state = train(cuda_ops, dev, smi)
+    launches_train, state, train_losses = train(cuda_ops, dev, smi)
     train_profile(*state, smi)
     del state
     train_vs_cpu(cuda_ops, dev)
-    launches_train_bf16, state = train(cuda_ops, dev, smi, bf16=True)
+    launches_train_bf16, state, _ = train(cuda_ops, dev, smi, bf16=True)
     train_profile(*state, smi, label="lm_bf16_profile")
     del state
     lm_bf16_vs_cpu(cuda_ops, dev)
@@ -1392,14 +1820,19 @@ def main():
         fail("the ResNet path launched flash_attention %d times"
              % cuda_ops.flash_attention.launches)
 
+    nd_ops(dev)
+    launches_nd = nd_lm(cuda_ops, dev, smi, train_losses)
+    nd_lm_vs_cpu(cuda_ops, dev)
+
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
               "launches": launches_serve + launches_train
-              + launches_train_bf16,
+              + launches_train_bf16 + launches_nd,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
-              "launches_train_bf16": launches_train_bf16}
+              "launches_train_bf16": launches_train_bf16,
+              "launches_nd": launches_nd}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

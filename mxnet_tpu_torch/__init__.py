@@ -12,10 +12,15 @@ Ported so far: the flash-attention TransformerLM, served through
 hand-written CUDA kernel (``ops/cuda_ops.py``, ``csrc/flash_attention.cu``);
 and ResNet v1/v2 (``gluon.model_zoo.vision``) on the Gluon conv, pooling
 and BatchNorm layers, trained by the example's ``fit_gluon`` loop
-(``models/image_classification.py``) with SGD and ``metric.Accuracy``.
+(``models/image_classification.py``) with SGD and ``metric.Accuracy``;
+and the imperative API: ``nd`` (``NDArray`` and one function per
+registered op, ``ops/registry.py``) with ``autograd`` on NDArrays, the
+contexts usable as ``with mx.cpu():`` scopes.
 """
-from . import metric
+from . import autograd, metric, ndarray
+from . import ndarray as nd
 from .base import MXNetError
 from .context import cpu, current_context, gpu, tpu
 
-__all__ = ["MXNetError", "cpu", "gpu", "tpu", "current_context", "metric"]
+__all__ = ["MXNetError", "cpu", "gpu", "tpu", "current_context", "metric",
+           "nd", "ndarray", "autograd"]

@@ -1,8 +1,10 @@
-"""Recording and training scopes (counterpart of ``mxnet_tpu/autograd.py``
-``record``/``pause``/``train_mode``/``predict_mode``, :45-105).
+"""Recording and training scopes, and gradients of NDArrays (counterpart
+of ``mxnet_tpu/autograd.py``: ``record``/``pause``/``train_mode``/
+``predict_mode``, :45-105; ``mark_variables`` :181, ``backward`` :323,
+``grad`` :400).
 
-The JAX package keeps its own tape (``TapeNode``) and ``backward``; here
-torch's autograd is the tape, so only the two thread-local flags remain:
+The JAX package keeps its own tape (``TapeNode``); here torch's autograd
+is the tape, and the module keeps two thread-local flags:
 
 - *recording*: inside :func:`record` ops build the graph that
   ``loss.backward()`` walks (torch's grad mode on), inside :func:`pause`
@@ -13,18 +15,32 @@ torch's autograd is the tape, so only the two thread-local flags remain:
   statistics and their running fold in training, the running statistics
   otherwise).
 
-Gradients then land in each parameter's ``.grad``, where ``gluon.Trainer``
-reads them; the Trainer makes each backward overwrite them, as Gluon's
-``grad_req='write'`` does.
+Gradients of Gluon parameters land in each parameter's ``.grad``, where
+``gluon.Trainer`` reads them; the Trainer makes each backward overwrite
+them, as Gluon's ``grad_req='write'`` does.
+
+An NDArray that takes gradients (``attach_grad``, :func:`mark_variables`)
+holds a leaf tensor with a hook that, after torch stores the leaf's
+gradient, takes it off the leaf and hands it to the NDArray's ``grad``:
+written with ``grad_req='write'``, added with ``'add'``.  An NDArray's
+buffer is swapped on mutation, and each new buffer is a new leaf with the
+same hook, so a backward reaches the array whichever of its buffers the
+graph saved; gradients that reach it through several of them in one
+:func:`backward` are summed first, then written once.  Torch's own
+``.grad`` of those leaves never accumulates.
 """
 from __future__ import annotations
 
 import threading
+import weakref
 
 import torch
 
+from .base import MXNetError
+
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "set_recording", "set_training"]
+           "is_training", "set_recording", "set_training", "mark_variables",
+           "backward", "grad"]
 
 _STATE = threading.local()
 
@@ -100,3 +116,109 @@ def train_mode():
 def predict_mode():
     """Scope in prediction mode; recording is left as it is."""
     return _RecordingStateScope(None, False)
+
+
+# ---------------------------------------------------------------------------
+# gradients of NDArrays
+
+# one NDArray backward at a time; while it runs, _received collects what
+# the leaf hooks hand over (they may run on torch's device threads)
+_BACKWARD_LOCK = threading.Lock()
+_received = None
+
+
+def _grad_hook(array_ref):
+    def hook(leaf):
+        g, leaf.grad = leaf.grad, None
+        arr = array_ref()
+        if arr is None or g is None:
+            return
+        received = _received
+        if received is None:   # a backward run on the tensors directly
+            arr._take_grad(g)
+            return
+        entry = received.get(id(arr))
+        if entry is None:
+            received[id(arr)] = [arr, g]
+        else:
+            entry[1] = entry[1] + g
+    return hook
+
+
+def leaf_for(array, value):
+    """``value`` as a leaf tensor whose gradient goes to the NDArray
+    ``array``."""
+    leaf = value.detach().requires_grad_(True)
+    leaf.register_post_accumulate_grad_hook(_grad_hook(weakref.ref(array)))
+    return leaf
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make each NDArray of ``variables`` take gradients into the NDArray
+    beside it in ``gradients``, by ``grad_reqs`` (``"write"``, ``"add"``
+    or ``"null"``; one for all or one each)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, g, req in zip(variables, gradients, grad_reqs):
+        var.grad = g
+        var._grad_req = req
+        if req != "null":
+            var._data = leaf_for(var, var._data)
+
+
+def _heads(heads, head_grads):
+    from .ndarray.ndarray import NDArray
+
+    if isinstance(heads, NDArray):
+        heads = [heads]
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif isinstance(head_grads, NDArray):
+        head_grads = [head_grads]
+    tensors, grads = [], []
+    for h, hg in zip(heads, head_grads):
+        t = h._data
+        if not t.requires_grad:
+            raise MXNetError("cannot differentiate a head that was not "
+                             "computed under autograd.record()")
+        tensors.append(t)
+        grads.append(torch.ones_like(t) if hg is None else hg._data)
+    return tensors, grads
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of ``heads`` (NDArrays; ``head_grads`` default to ones)
+    into the ``grad`` of every NDArray that takes them, and into Gluon
+    parameters' ``.grad``.  ``train_mode`` is accepted for API parity: no
+    ported op's gradient depends on it."""
+    global _received
+    tensors, grads = _heads(heads, head_grads)
+    with _BACKWARD_LOCK:
+        _received = {}
+        try:
+            torch.autograd.backward(tensors, grads,
+                                    retain_graph=retain_graph)
+            received = _received
+        finally:
+            _received = None
+    for arr, g in received.values():
+        arr._take_grad(g)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """Gradients of ``heads`` with respect to the NDArrays ``variables``,
+    as new NDArrays; nothing is written to ``.grad``.  With
+    ``create_graph`` they can be differentiated again."""
+    from .ndarray.ndarray import NDArray
+
+    if isinstance(variables, NDArray):
+        variables = [variables]
+    tensors, grads = _heads(heads, head_grads)
+    got = torch.autograd.grad(tensors, [v._data for v in variables], grads,
+                              retain_graph=retain_graph,
+                              create_graph=create_graph, allow_unused=True)
+    if any(g is None for g in got):
+        raise MXNetError("one of the variables does not participate in the "
+                         "computation of heads")
+    return [NDArray(g) for g in got]

@@ -1,25 +1,49 @@
-"""Base error type and dtype helpers (counterpart of ``mxnet_tpu/base.py``,
-and of the dtype aliases of ``mxnet_tpu/ndarray/ndarray.py:34-56``).
+"""Base error type, number types and dtype helpers (counterpart of
+``mxnet_tpu/base.py``: ``MXNetError``, ``numeric_types``,
+``integer_types`` and ``attrs_key``, :18-65; and of the dtype aliases of
+``mxnet_tpu/ndarray/ndarray.py:34-56``).
 
-Only :class:`MXNetError` and the dtype helpers are ported; the rest of
-those modules serves the op registry and NDArray, which later slices bring
-over.  numpy has no bfloat16 of its own: the JAX package hands out
-``ml_dtypes``' type, which this package recognises by name and never
-imports.
+numpy has no bfloat16 of its own: the JAX package hands out ``ml_dtypes``'
+type, which this package recognises by name and never imports.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "as_dtype", "tensor_from_numpy"]
+__all__ = ["MXNetError", "numeric_types", "integer_types", "attrs_key",
+           "as_dtype", "tensor_from_numpy"]
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "float16": torch.float16, "bfloat16": torch.bfloat16}
 
+numeric_types = (float, int, np.generic)
+integer_types = (int, np.integer)
+
 
 class MXNetError(RuntimeError):
     """Error raised by framework internals (``mxnet_tpu.base.MXNetError``)."""
+
+
+def _make_hashable(v):
+    """An attribute value as a hashable key component."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_make_hashable(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _make_hashable(x)) for k, x in v.items()))
+    if isinstance(v, np.dtype):
+        return v.name
+    if isinstance(v, np.ndarray):
+        return (v.shape, v.dtype.name, v.tobytes())
+    return v
+
+
+def attrs_key(attrs, skip=None):
+    """A stable hashable key for an op's attribute dict, leaving out the
+    key ``skip``: what a cache of per-attrs compiled ops keys on (the JAX
+    package's jit caches; the port's eager dispatch keeps none yet)."""
+    return tuple(sorted((k, _make_hashable(v)) for k, v in attrs.items()
+                        if k != skip))
 
 
 def as_dtype(dtype):

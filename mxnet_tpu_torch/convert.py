@@ -19,6 +19,9 @@ bit for bit, bfloat16 ones (``ml_dtypes``' type, which the JAX package's
 ``asnumpy()`` gives for a cast block) included, and are copied into the
 port's tensors in their dtype: into a bf16 model exactly, into an fp32
 one widened exactly.
+
+``ndarrays_from_numpy(named_arrays, ctx)`` makes the same arrays the port's
+NDArrays instead, for code written in ``mx.nd``.
 """
 from __future__ import annotations
 
@@ -28,10 +31,13 @@ import numpy as np
 import torch
 
 from .base import MXNetError, tensor_from_numpy
+from .context import resolve_device
 from .gluon.model_zoo.vision.resnet import ResNetV1, ResNetV2
 from .models.transformer_lm import TransformerLM
+from .ndarray.ndarray import NDArray, torch_dtype
 
-__all__ = ["load_mxnet_params", "mxnet_to_torch_name", "mxnet_pairs"]
+__all__ = ["load_mxnet_params", "mxnet_to_torch_name", "mxnet_pairs",
+           "ndarrays_from_numpy"]
 
 # Gluon name (model prefix stripped) <-> port parameter name, per model.
 # ``{i}`` is a layer index, ``{p}`` a parameter kind (weight, bias, ...).
@@ -167,3 +173,15 @@ def load_mxnet_params(module, named_arrays):
         for target, name in filled.items():
             params[target].copy_(tensor_from_numpy(named_arrays[name]))
     return module
+
+
+def ndarrays_from_numpy(named_arrays, ctx=None):
+    """``{name: NDArray}`` holding ``named_arrays``' numpy arrays (the JAX
+    package's ``p.data().asnumpy()``) bit for bit, in their dtype (bf16
+    included), on ``ctx`` (default ``cuda:0``)."""
+    device = resolve_device(ctx)
+    out = {}
+    for name, a in named_arrays.items():
+        t = tensor_from_numpy(a)
+        out[name] = NDArray(t.to(device, torch_dtype(t.dtype)))
+    return out

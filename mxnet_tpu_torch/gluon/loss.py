@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import numbers
 
-import torch
 import torch.nn.functional as F
-from torch import nn
+
+from ..ops.reduce_ops import pick
+from .block import Block
 
 __all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
 
@@ -34,18 +35,10 @@ def _mean_except(x, axis):
     return x.mean(dim=dims) if dims else x
 
 
-def _pick(x, index, axis):
-    """``x``'s entries at ``index`` along ``axis``, keeping that axis.
-    ``index`` may be float (MXNet labels are): it is truncated to an
-    integer and clipped to the axis, as ``pick``'s default mode does."""
-    axis %= x.dim()
-    idx = index.to(torch.int64).clamp(0, x.shape[axis] - 1)
-    return torch.gather(x, axis, idx.unsqueeze(axis))
-
-
-class Loss(nn.Module):
+class Loss(Block):
     """Base of the losses: a scalar ``weight`` and the ``batch_axis`` the
-    result keeps."""
+    result keeps.  A ``Block``, so NDArray arguments give an NDArray
+    loss."""
 
     def __init__(self, weight, batch_axis):
         super().__init__()
@@ -78,7 +71,9 @@ class SoftmaxCrossEntropyLoss(Loss):
         if not self._from_logits:
             pred = F.log_softmax(pred, dim=self._axis)
         if self._sparse_label:
-            loss = -_pick(pred, label, self._axis)
+            # float labels are truncated and clipped to the axis, as
+            # pick's default mode does
+            loss = -pick(pred, label, self._axis, keepdims=True)
         else:
             label = label.reshape(pred.shape)
             loss = -(pred * label).sum(dim=self._axis, keepdim=True)

@@ -19,6 +19,8 @@ from torch import nn
 from ... import autograd
 from ...base import as_dtype
 from ...context import resolve_device
+from ...ops.nn_ops import (batch_norm_output, batch_stats, fully_connected,
+                           layer_norm)
 from ..block import Block
 
 __all__ = ["Dense", "Embedding", "LayerNorm", "BatchNorm", "Flatten",
@@ -47,9 +49,7 @@ class Dense(Block):
         self.bias = _param((units,), device) if use_bias else None
 
     def forward(self, x):
-        if self._flatten:
-            x = x.reshape(x.shape[0], -1)
-        y = F.linear(x, self.weight, self.bias)
+        y = fully_connected(x, self.weight, self.bias, self._flatten)
         return F.relu(y) if self._activation == "relu" else y
 
 
@@ -75,8 +75,7 @@ class LayerNorm(Block):
         self.beta = _param((in_channels,), device)
 
     def forward(self, x):
-        return F.layer_norm(x, (x.shape[-1],), self.gamma, self.beta,
-                            1e-5)
+        return layer_norm(x, self.gamma, self.beta)
 
 
 class BatchNorm(Block):
@@ -146,24 +145,20 @@ class BatchNorm(Block):
         gamma = torch.ones_like(self.gamma) if self._fix_gamma \
             else self.gamma
         if autograd.is_training() and not self._use_global_stats:
-            y = F.batch_norm(x, None, None, gamma, self.beta, training=True,
-                             eps=self._eps)
+            y = batch_norm_output(x, gamma, self.beta, None, None, self._eps)
+            # the op's mean and invstd, then the layer's variance from it
+            # (bn_invstd_to_var); in place and multi-tensor, since the host
+            # launches every one of these for every layer
+            mean, invstd = batch_stats(x, self.running_var.dtype, self._eps)
             with torch.no_grad():
-                dims = [d for d in range(x.dim()) if d != 1]
-                var, mean = (t.to(self.running_var.dtype) for t in
-                             torch.var_mean(x, dim=dims, correction=0))
-                # the op's invstd, then the layer's variance from it
-                # (bn_invstd_to_var); in place and multi-tensor, since the
-                # host launches every one of these for every layer
-                invstd = torch.sqrt(var + self._eps).reciprocal_()
                 var = invstd.square_().reciprocal_().sub_(self._eps)
                 stats = [self.running_mean, self.running_var]
                 torch._foreach_mul_(stats, self._momentum)
                 torch._foreach_add_(stats, [mean, var],
                                     alpha=1 - self._momentum)
         else:
-            y = F.batch_norm(x, self.running_mean, self.running_var, gamma,
-                             self.beta, training=False, eps=self._eps)
+            y = batch_norm_output(x, gamma, self.beta, self.running_mean,
+                                  self.running_var, self._eps)
         return y.movedim(1, axis)
 
 

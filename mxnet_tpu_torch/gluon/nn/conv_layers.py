@@ -20,13 +20,10 @@ argument, as ``Dense``'s ``in_units`` is.  Transposed convolutions, the
 from __future__ import annotations
 
 import contextvars
-import math
 from contextlib import contextmanager
 
-import torch
-import torch.nn.functional as F
-
 from ...context import resolve_device
+from ...ops.nn_ops import _channel_first, convolution, pooling  # noqa: F401
 from ..block import Block
 from .activations import Activation
 from .basic_layers import _param
@@ -40,7 +37,6 @@ _channels_last_scope = contextvars.ContextVar("mxnet_tpu_torch_channels_last",
 
 _CHANNEL_FIRST = {1: "NCW", 2: "NCHW", 3: "NCDHW"}
 _CHANNEL_LAST = {1: "NWC", 2: "NHWC", 3: "NDHWC"}
-_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
 @contextmanager
@@ -74,16 +70,6 @@ def _pair(v, n):
             raise ValueError("expected %d-tuple, got %r" % (n, v))
         return tuple(int(x) for x in v)
     return (int(v),) * n
-
-
-def _channel_first(x):
-    """(N, *spatial, C) -> (N, C, *spatial), a view."""
-    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
-
-
-def _channel_last(x):
-    """(N, C, *spatial) -> (N, *spatial, C), a view."""
-    return x.permute(0, *range(2, x.dim()), 1)
 
 
 class _Conv(Block):
@@ -120,14 +106,9 @@ class _Conv(Block):
         self.act = Activation(activation) if activation is not None else None
 
     def forward(self, x):
-        weight = self.weight
-        if self._channel_last:
-            x, weight = _channel_first(x), _channel_first(weight)
-        y = _CONV[len(self._kernel)](x, weight, self.bias, self._strides,
-                                     self._padding, self._dilation,
-                                     self._groups)
-        if self._channel_last:
-            y = _channel_last(y)
+        y = convolution(x, self.weight, self.bias, self._strides,
+                        self._padding, self._dilation, self._groups,
+                        self._channel_last)
         return y if self.act is None else self.act(y)
 
 
@@ -160,12 +141,10 @@ class Conv3D(_Conv):
 
 
 class _Pooling(Block):
-    """2-D max or average pooling, as the JAX ``Pooling`` op computes it
-    (``mxnet_tpu/ops/nn_ops.py:161``).  ``ceil_mode`` is its 'full'
-    convention: the right edge is padded until ceil((x + 2p - k) / s) + 1
-    windows fit; a max pads with -inf, and an average divides by the
-    window clipped to the symmetric padding (``count_include_pad``) or to
-    the input.  Global pools reduce the spatial axes, keeping them."""
+    """2-D max or average pooling (``ops.nn_ops.pooling``, the JAX
+    ``Pooling`` op, ``mxnet_tpu/ops/nn_ops.py:161``).  ``ceil_mode`` is its
+    'full' convention.  Global pools reduce the spatial axes, keeping
+    them."""
 
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
                  pool_type, layout, count_include_pad=True):
@@ -182,45 +161,9 @@ class _Pooling(Block):
         self._count_include_pad = count_include_pad
 
     def forward(self, x):
-        if self._channel_last:
-            x = _channel_first(x)
-        y = self._pool(x)
-        return _channel_last(y) if self._channel_last else y
-
-    def _pool(self, x):
-        if self._global:
-            return (x.amax(dim=(2, 3), keepdim=True) if self._type == "max"
-                    else x.mean(dim=(2, 3), keepdim=True))
-        k, s, p = self._kernel, self._strides, self._padding
-        extra = [0, 0]
-        if self._ceil_mode:
-            for i in range(2):
-                rem = (x.shape[2 + i] + 2 * p[i] - k[i]) % s[i]
-                extra[i] = 0 if rem == 0 else s[i] - rem
-        if not any(extra) and all(2 * p[i] <= k[i] for i in range(2)):
-            # torch's own padding: -inf for a max, counted or not for an
-            # average; its divisor is then the whole window or the part
-            # inside the input, as the JAX op's
-            if self._type == "max":
-                return F.max_pool2d(x, k, s, p)
-            return F.avg_pool2d(x, k, s, p,
-                                count_include_pad=self._count_include_pad)
-        # pad explicitly: F.pad's order is (W left, W right, H top,
-        # H bottom)
-        pads = (p[1], p[1] + extra[1], p[0], p[0] + extra[0])
-        if self._type == "max":
-            return F.max_pool2d(F.pad(x, pads, value=-math.inf), k, s)
-        # the mean of the padded window over the mean of a mask that is 1
-        # where a cell counts: the window's area cancels
-        mask = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
-                          device=x.device)
-        if self._count_include_pad:
-            mask = F.pad(mask, (p[1], p[1], p[0], p[0]), value=1.0)
-            mask_pads = (0, extra[1], 0, extra[0])
-        else:
-            mask_pads = pads
-        return (F.avg_pool2d(F.pad(x, pads), k, s)
-                / F.avg_pool2d(F.pad(mask, mask_pads), k, s))
+        return pooling(x, self._kernel, self._strides, self._padding,
+                       self._type, self._ceil_mode, self._global,
+                       self._count_include_pad, self._channel_last)
 
 
 class MaxPool2D(_Pooling):

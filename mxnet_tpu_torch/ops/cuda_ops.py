@@ -25,6 +25,7 @@ import threading
 import torch
 
 from ..base import MXNetError
+from .registry import register
 
 __all__ = ["flash_attention"]
 
@@ -102,6 +103,16 @@ def flash_attention(q, k, v, causal=False, scale=None):
 # kernel launches, counted where they happen: in all, and by input dtype
 flash_attention.launches = 0
 flash_attention.launches_by_dtype = dict.fromkeys(("float32", "bfloat16"), 0)
+
+
+@register("_contrib_flash_attention")
+def _flash_attention_op(attrs, q, k, v):
+    """``nd._contrib_flash_attention(q, k, v, causal=..., scale=...)``:
+    :func:`flash_attention`, so CUDA inputs launch the kernel and CPU
+    inputs take the plain version (``mxnet_tpu/ops/pallas_ops.py:213-216``
+    passes ``bool(causal)``)."""
+    return flash_attention(q, k, v, causal=bool(attrs.get("causal", False)),
+                           scale=attrs.get("scale"))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -16,10 +16,21 @@ The ``mp_`` updates keep an fp32 master copy of an fp16 or bf16 weight:
 the gradient is widened to fp32 before it is prepared, the master weight
 (and the momentum) are updated in fp32, and the low-precision weight is
 the cast of the new master, not an update of its own.
+
+Each is also a registered op under the JAX name and outputs
+(``nd.adam_update(w, g, m, v, lr=...)`` returns ``[w, m, v]``), with
+``lr`` and ``wd`` dynamic attributes and ``rescale_grad``,
+``clip_gradient``, ``momentum``, ``beta1``, ``beta2`` and ``epsilon`` as
+attributes.  Given ``out=`` the weight alone, an op also writes its new
+states back into the state inputs, as MXNet's ops mutate them
+(``nd.adam_update(w, g, m, v, out=w)`` updates ``m`` and ``v``); the JAX
+package's ops do not.
 """
 from __future__ import annotations
 
 import torch
+
+from .registry import register
 
 __all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
            "mp_sgd_mom_update", "adam_update"]
@@ -80,3 +91,49 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
     v = beta2 * var + (1 - beta2) * torch.square(g)
     w = weight - lr * m / (torch.sqrt(v) + epsilon)
     return w, m, v
+
+
+# ---------------------------------------------------------------------------
+# the registered ops
+
+def _common(attrs):
+    clip = attrs.get("clip_gradient", -1.0)
+    return {"lr": float(attrs["lr"]), "wd": float(attrs.get("wd", 0.0)),
+            "rescale_grad": float(attrs.get("rescale_grad", 1.0)),
+            "clip_gradient": None if clip is None else float(clip)}
+
+
+_OP = {"dynamic_attrs": ("lr", "wd")}
+
+
+@register("sgd_update", **_OP)
+def _sgd_update_op(attrs, weight, grad):
+    return sgd_update(weight, grad, **_common(attrs))
+
+
+@register("sgd_mom_update", num_outputs=2, mutate_inputs=(2,), **_OP)
+def _sgd_mom_update_op(attrs, weight, grad, mom):
+    return sgd_mom_update(weight, grad, mom,
+                          momentum=float(attrs.get("momentum", 0.0)),
+                          **_common(attrs))
+
+
+@register("mp_sgd_update", num_outputs=2, mutate_inputs=(2,), **_OP)
+def _mp_sgd_update_op(attrs, weight, grad, weight32):
+    return mp_sgd_update(weight, grad, weight32, **_common(attrs))
+
+
+@register("mp_sgd_mom_update", num_outputs=3, mutate_inputs=(2, 3), **_OP)
+def _mp_sgd_mom_update_op(attrs, weight, grad, mom, weight32):
+    return mp_sgd_mom_update(weight, grad, mom, weight32,
+                             momentum=float(attrs.get("momentum", 0.0)),
+                             **_common(attrs))
+
+
+@register("adam_update", num_outputs=3, mutate_inputs=(2, 3), **_OP)
+def _adam_update_op(attrs, weight, grad, mean, var):
+    return adam_update(weight, grad, mean, var,
+                       beta1=float(attrs.get("beta1", 0.9)),
+                       beta2=float(attrs.get("beta2", 0.999)),
+                       epsilon=float(attrs.get("epsilon", 1e-8)),
+                       **_common(attrs))

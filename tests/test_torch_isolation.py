@@ -57,6 +57,28 @@ def test_package_source_imports_no_jax():
     assert {f: m for f, m in found.items() if m} == {}
 
 
+def test_nd_without_cuda_or_a_cpu_scope_raises(monkeypatch):
+    """Without ``ctx`` an NDArray is made on ``cuda:0``: with CUDA hidden
+    it raises, and only ``ctx=mx.cpu()`` or ``with mx.cpu():`` gives the
+    CPU."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: mx.nd.ones((2, 2)), lambda: mx.nd.array([1.0]),
+                 lambda: mx.nd.zeros(3, ctx=mx.gpu(0))):
+        try:
+            make()
+        except mx.MXNetError as e:
+            assert "no CUDA device" in str(e)
+        else:
+            raise AssertionError("made an NDArray without CUDA")
+    assert mx.nd.ones((2, 2), ctx=mx.cpu()).context == torch.device("cpu")
+    with mx.cpu():
+        assert mx.nd.ones((2, 2)).context == torch.device("cpu")
+
+
 def test_import_build_and_serve_load_no_jax_module():
     code = r"""
 import sys
@@ -83,6 +105,14 @@ trainer = gluon.Trainer(net.named_parameters(), "adam",
                         {"multi_precision": True})
 trainer.step(1)
 trainer._updater.set_states(trainer._updater.get_states())
+# the imperative API: an op, recorded, and its backward
+from mxnet_tpu_torch import nd, autograd
+x = nd.array(np.ones((2, 3), np.float32), ctx=mxnet_tpu_torch.cpu())
+x.attach_grad()
+with autograd.record():
+    y = nd.FullyConnected(x, nd.ones((4, 3), ctx="cpu"), no_bias=True).sum()
+y.backward()
+assert x.grad.asnumpy().tolist() == [[4.0] * 3] * 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes"))
 print("FORBIDDEN", bad)

@@ -69,8 +69,9 @@ def test_flash_attention_grads_match_jax(B, H, T, Tk, D, causal):
     q = rng.normal(0, 1, (B, H, T, D)).astype(np.float32)
     k = rng.normal(0, 1, (B, H, Tk, D)).astype(np.float32)
     v = rng.normal(0, 1, (B, H, Tk, D)).astype(np.float32)
-    ref = jax.grad(lambda a, b, c: jnp.sum(jax_flash(a, b, c, causal=causal)
-                                           ** 2), argnums=(0, 1, 2))(
+    # jitted: one compile, not one per primitive of the eager reference
+    ref = jax.jit(jax.grad(lambda a, b, c: jnp.sum(
+        jax_flash(a, b, c, causal=causal) ** 2), argnums=(0, 1, 2)))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
     (flash_attention(tq, tk, tv, causal=causal) ** 2).sum().backward()
