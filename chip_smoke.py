@@ -19,7 +19,17 @@ its attention in the kernel's bf16 path (``lm_bf16_*``), and ResNet-50
 through ``fit_gluon --dtype bfloat16`` in both layouts and with
 ``multi_precision`` (``resnet_bf16_*``), each profiled and held against
 the CPU in bf16.  TF32 stays off but in the TF32 controls of the fp32
-``*_vs_cpu`` phases.
+``*_vs_cpu`` phases.  Then Gluon's parameter model: ``mx.random.seed``
+gives the same weights on the card as on the CPU (``seeded_init``, which
+are the JAX package's), the LM's forward through
+``gluon.block.functional_call`` launches the kernel once a layer and
+equals the module call (``lm_functional``), a model trained on the card
+round-trips through a ``.params`` file (``params_io``), and bench.py's
+headline step (ResNet-50 v1, B = 32, bf16 inside the loss, fp32 aux, SGD
+with momentum 0.9 and lr 0.05) runs through ``functional_call`` and
+``torch.autograd`` in both layouts (``functional_step``), held against the
+Gluon path on the card (``functional_vs_gluon``) and against the CPU in
+fp32 (``functional_vs_cpu``).  The ResNet fits run seeded and shuffled.
 
     python3 chip_smoke.py
 
@@ -557,14 +567,20 @@ def lm_batches(rng, steps, B, T, dev):
 
 
 def new_lm(dev, depth, seed):
-    from mxnet_tpu_torch import initializer
+    """The LM on ``dev`` with the example's weights for
+    ``mx.random.seed(seed)``: Xavier, the deferred layers drawn at a first
+    call on one token."""
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.models import TransformerLM
 
+    mx.random.seed(seed)
     net = TransformerLM(VOCAB, dim=DIM, heads=HEADS, depth=depth,
                         max_len=MAX_LEN, device=dev)
-    return initializer.initialize(
-        net, initializer.Xavier(),
-        generator=torch.Generator().manual_seed(seed))
+    net.initialize(mx.init.Xavier())
+    one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        net(one, one)
+    return net
 
 
 def train(cuda_ops, dev, card, bf16=False):
@@ -798,13 +814,30 @@ def resnet_args(batch_size):
 
 
 def new_resnet(dev, seed, layout="NCHW"):
-    from mxnet_tpu_torch import initializer
+    """resnet50_v1 on ``dev`` with the JAX package's weights for
+    ``mx.random.seed(seed)``: Xavier, the deferred layers drawn at a first
+    call (shapes do not depend on the image size)."""
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo import vision
 
+    mx.random.seed(seed)
     net = vision.get_model("resnet50_v1", layout=layout, device=dev)
-    return initializer.initialize(
-        net, initializer.Xavier(),
-        generator=torch.Generator().manual_seed(seed))
+    net.initialize(mx.init.Xavier())
+    with torch.no_grad():
+        net(torch.zeros((1, 3, 32, 32) if layout == "NCHW"
+                        else (1, 32, 32, 3), device=dev))
+    return net
+
+
+def synthetic_batches(args, image_shape, device, n):
+    """The first ``n`` batches of the example's synthetic set in the order
+    it was drawn, as (data, label) tensors on ``device``."""
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    it = ic.get_synthetic_iter(args, image_shape, device)
+    (_, X), (_, Y) = it.data[0], it.label[0]
+    B = args.batch_size
+    return [(X[i * B:(i + 1) * B], Y[i * B:(i + 1) * B]) for i in range(n)]
 
 
 def resnet_model(dev, card):
@@ -830,10 +863,13 @@ def resnet_model(dev, card):
 def resnet_fit(dev, card, dtype="float32"):
     """Phase: resnet50_v1 trained through the example's entry point
     (``image_classification.main``, one epoch of the synthetic set) with
-    ``--dtype``."""
+    ``--dtype``, from ``mx.random.seed(0)``: the JAX run's weights and
+    shuffled batch order.  Returns the trained model."""
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.models import image_classification as ic
 
     label = "resnet_fit" if dtype == "float32" else "resnet_bf16_fit"
+    mx.random.seed(0)
     t0 = time.time()
     net = ic.main(["--network", "resnet50_v1", "--batch-size", str(RESNET_B),
                    "--num-epochs", "1", "--dtype", dtype])
@@ -849,8 +885,10 @@ def resnet_fit(dev, card, dtype="float32"):
     if moved != 53:
         fail("%s moved %d of 53 running variances" % (label, moved))
     phase(label, network="resnet50_v1", batch=RESNET_B, dtype=dtype,
-          steps=-(-max(10 * RESNET_B, 320) // RESNET_B),
-          seconds=fit_s, running_vars_moved=moved, card='"%s"' % card)
+          steps=-(-max(10 * RESNET_B, 320) // RESNET_B), seed=0,
+          shuffled=True, seconds=fit_s, running_vars_moved=moved,
+          card='"%s"' % card)
+    return net
 
 
 def resnet_steps(dev, card, batches, layout, dtype, label,
@@ -910,17 +948,18 @@ def resnet_steps(dev, card, batches, layout, dtype, label,
 
 
 def resnet_train(dev, card, dtype="float32"):
-    """Phases: ``resnet_fit`` (or ``resnet_bf16_fit``), then RESNET_STEPS
-    steps of the loop in each layout (``resnet_train``,
-    ``resnet_bf16_train``).  Returns each layout's model state for the
-    profile, by layout."""
-    from mxnet_tpu_torch.models import image_classification as ic
-
-    resnet_fit(dev, card, dtype)
+    """Phases: ``resnet_fit`` (or ``resnet_bf16_fit``; in fp32 then
+    ``params_io`` of the fitted model), then RESNET_STEPS steps of the loop
+    in each layout (``resnet_train``, ``resnet_bf16_train``).  Returns each
+    layout's model state for the profile, by layout."""
+    fitted = resnet_fit(dev, card, dtype)
+    if dtype == "float32":
+        params_io(fitted, card)
+    del fitted   # freed before the timed steps and their peak memory
     label = "resnet_train" if dtype == "float32" else "resnet_bf16_train"
-    batches = ic.get_synthetic_iter(
-        resnet_args(RESNET_B), (3, RESNET_SIZE, RESNET_SIZE),
-        dev)[:RESNET_STEPS]
+    batches = synthetic_batches(resnet_args(RESNET_B),
+                                (3, RESNET_SIZE, RESNET_SIZE), dev,
+                                RESNET_STEPS)
     states = {}
     for layout in ("NCHW", "NHWC"):
         if layout == "NHWC":
@@ -936,11 +975,9 @@ def resnet_train(dev, card, dtype="float32"):
 def resnet_bf16_mp(dev, card):
     """Phase: the bf16 step with ``multi_precision=True``: SGD keeps fp32
     master weights, and each bf16 weight is its master's cast."""
-    from mxnet_tpu_torch.models import image_classification as ic
-
-    batches = ic.get_synthetic_iter(
-        resnet_args(RESNET_B), (3, RESNET_SIZE, RESNET_SIZE),
-        dev)[:RESNET_STEPS]
+    batches = synthetic_batches(resnet_args(RESNET_B),
+                                (3, RESNET_SIZE, RESNET_SIZE), dev,
+                                RESNET_STEPS)
     net, trainer, _ = resnet_steps(dev, card, batches, "NCHW", "bfloat16",
                                    "resnet_bf16_mp", multi_precision=True)
     states = trainer._updater.states
@@ -1128,7 +1165,7 @@ def resnet_vs_cpu(dev):
 
     B, side, steps = RESNET_VS_CPU
     args = resnet_args(B)
-    batches = ic.get_synthetic_iter(args, (3, side, side), "cpu")[:steps]
+    batches = synthetic_batches(args, (3, side, side), "cpu", steps)
     start = new_resnet("cpu", 1).state_dict()
 
     def run(device):
@@ -1227,7 +1264,7 @@ def resnet_bf16_vs_cpu(dev):
 
     B, side, steps = RESNET_VS_CPU
     args = resnet_args(B)
-    batches = ic.get_synthetic_iter(args, (3, side, side), "cpu")[:steps]
+    batches = synthetic_batches(args, (3, side, side), "cpu", steps)
     start = new_resnet("cpu", 1).state_dict()
 
     def run(device, dtype, step_up=False):
@@ -1303,7 +1340,12 @@ def lm_bf16_vs_cpu(cuda_ops, dev):
     ce = SoftmaxCrossEntropyLoss()
 
     def run(device, dtype, step_up=False):
-        net = new_lm(device, depth, 1)
+        # built and loaded (the load fills the deferred shapes): no
+        # forward runs before the counted one
+        from mxnet_tpu_torch.models import TransformerLM
+
+        net = TransformerLM(VOCAB, dim=DIM, heads=HEADS, depth=depth,
+                            max_len=MAX_LEN, device=device)
         net.load_state_dict(start)
         net.cast(dtype)
         if step_up:
@@ -1765,6 +1807,311 @@ def nd_lm_vs_cpu(cuda_ops, dev):
           rel_bound=GRAD_REL_BOUND, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Gluon's parameter model: seeded weights, the functional step, files
+
+# bench.py's headline step (:219-246): lr, momentum, classes
+FUNCTIONAL_LR, FUNCTIONAL_MOMENTUM, CLASSES = 0.05, 0.9, 1000
+FUNCTIONAL_STEPS = 6
+# functional_vs_gluon: the step-1 gradients of one loss through the two
+# entry points, the same kernels: equal, or within this of a leaf's norm
+FUNCTIONAL_GLUON_REL = 1e-5
+# the LM's functional_call forward
+LM_FUNCTIONAL_B = 4
+
+
+def seeded_init(dev, card):
+    """Phase: ``mx.random.seed(0)``, Xavier and one call give the same
+    weights on the card as on the CPU, bit for bit (the keys and the numpy
+    draws are made on the host): resnet50_v1 in both layouts and the
+    full-width LM.  Prints the seconds of ``initialize`` and of the first
+    call that materializes the deferred layers.  Returns the card's LM."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.models import TransformerLM
+
+    def build(model, device):
+        mx.random.seed(0)
+        if model == "lm":
+            net = TransformerLM(VOCAB, dim=DIM, heads=HEADS, depth=DEPTH,
+                                max_len=MAX_LEN, device=device)
+            inputs = (torch.zeros((1, 1), dtype=torch.int32,
+                                  device=device),) * 2
+        else:
+            net = vision.get_model("resnet50_v1", layout=model, device=device)
+            inputs = (torch.zeros((1, 3, 32, 32) if model == "NCHW"
+                                  else (1, 32, 32, 3), device=device),)
+        t0 = time.perf_counter()
+        net.initialize(mx.init.Xavier())
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            net(*inputs)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return net, t1 - t0, t2 - t1
+
+    card_lm = None
+    for model in ("NCHW", "NHWC", "lm"):
+        net, init_s, first_call_s = build(model, dev)
+        ref, cpu_init_s, cpu_first_call_s = build(model, "cpu")
+        want = ref.state_dict()
+        got = net.state_dict()
+        if list(got) != list(want):
+            fail("seeded_init %s: the card's arrays are not the CPU's" % model)
+        differ = [n for n, t in got.items()
+                  if not torch.equal(t.cpu(), want[n])]
+        if differ:
+            fail("seeded_init %s: %d arrays differ from the CPU's, first %s"
+                 % (model, len(differ), differ[0]))
+        phase("seeded_init", model="resnet50_v1" if model != "lm" else "lm",
+              layout=model if model != "lm" else None, seed=0,
+              arrays=len(got), params=sum(t.numel() for t in got.values()),
+              bitwise_equal_to_cpu=True, initialize_s=init_s,
+              first_call_s=first_call_s, cpu_initialize_s=cpu_init_s,
+              cpu_first_call_s=cpu_first_call_s, card='"%s"' % card)
+        del ref, want
+        if model == "lm":
+            card_lm = net
+    return card_lm
+
+
+def functional_step_fn(net, dtype):
+    """bench.py's step over ``net`` through ``gluon.block.functional_call``:
+    the trainable parameters (fp32 leaves) cast to ``dtype`` inside the
+    loss, BatchNorm's statistics fp32 aux, ``log_softmax`` and
+    ``take_along_dim``, then ``m = 0.9 m + g; p = p - 0.05 m`` (no weight
+    decay) on the leaves.  Returns (state, step): ``step(state, x, y)``
+    returns the loss, the logits and the gradients (by structural name),
+    and moves the state to the new parameters, momenta and aux."""
+    from mxnet_tpu_torch.gluon.block import (functional_call, param_values,
+                                             split_param_names)
+
+    train_names, aux_names = split_param_names(net)
+    values = param_values(net)
+    structural = {p.name: k
+                  for k, p in net._collect_params_with_prefix().items()}
+    state = {"train": {n: values[n].clone().requires_grad_()
+                       for n in train_names},
+             "aux": {n: values[n].clone() for n in aux_names}}
+    state["momenta"] = {n: torch.zeros_like(v)
+                        for n, v in state["train"].items()}
+
+    def step(state, x, y):
+        train = state["train"]
+        p = dict(state["aux"])
+        p.update({n: v.to(dtype) for n, v in train.items()})
+        outs, new_aux = functional_call(net, p, x.to(dtype), training=True)
+        logits = outs[0].float()
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -torch.take_along_dim(logp, y[:, None], dim=1).mean()
+        grads = torch.autograd.grad(loss, list(train.values()))
+        with torch.no_grad():
+            moms = list(state["momenta"].values())
+            torch._foreach_mul_(moms, FUNCTIONAL_MOMENTUM)
+            torch._foreach_add_(moms, grads)
+            torch._foreach_add_(list(train.values()), moms,
+                                alpha=-FUNCTIONAL_LR)
+        state["aux"] = new_aux
+        return loss.detach(), logits.detach(), {
+            structural[n]: g for n, g in zip(train, grads)}
+
+    return state, step
+
+
+def bench_batch(B, side, layout, device):
+    """bench.py's input: uniform in [-1, 1) and random labels, from
+    ``RandomState(0)``."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (B, 3, side, side)).astype(np.float32)
+    y = rng.randint(0, CLASSES, B).astype(np.int64)
+    if layout == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+def functional_step(dev, card):
+    """Phase: bench.py's headline step (resnet50_v1, B = 32, 224 x 224,
+    1000 classes, bf16 inside the loss) through ``functional_call`` and
+    ``torch.autograd``, FUNCTIONAL_STEPS steps in each layout, timed by
+    CUDA events: one warm step, the median of the rest."""
+    for layout in ("NCHW", "NHWC"):
+        net = new_resnet(dev, 0, layout)
+        own = {n: t.clone() for n, t in net.state_dict().items()}
+        state, step = functional_step_fn(net, torch.bfloat16)
+        x, y = bench_batch(RESNET_B, RESNET_SIZE, layout, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_ms = [], []
+        for _ in range(FUNCTIONAL_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, _, _ = step(state, x, y)
+            end.record()
+            torch.cuda.synchronize()
+            losses.append(loss.item())
+            step_ms.append(start.elapsed_time(end))
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if not all(np.isfinite(losses)):
+            fail("functional_step %s losses not finite: %s"
+                 % (layout, losses))
+        if any(t.dtype != torch.float32 for t in state["aux"].values()):
+            fail("functional_step %s: the aux left fp32" % layout)
+        if any(not torch.equal(t, own[n])
+               for n, t in net.state_dict().items()):
+            fail("functional_step %s wrote the block's tensors" % layout)
+        median_ms = float(np.median(step_ms[1:]))
+        phase("functional_step", layout=layout, network="resnet50_v1",
+              batch=(RESNET_B, 3, RESNET_SIZE, RESNET_SIZE),
+              compute="bf16 in the loss, fp32 master and aux",
+              steps=FUNCTIONAL_STEPS, losses=json.dumps(losses),
+              step_ms=json.dumps(step_ms), median_step_ms=median_ms,
+              imgs_per_s=RESNET_B / (median_ms / 1e3),
+              peak_memory_gb=peak_gb, card='"%s"' % card)
+        del net, state
+
+
+def functional_vs_gluon(dev):
+    """Phase: the step-1 gradients of bench.py's loss through
+    ``functional_call`` (fp32 leaves cast to bf16 in the loss) against
+    ``autograd.record()`` through the block cast to bf16, the same weights
+    and batch on the card: equal, or within FUNCTIONAL_GLUON_REL of a
+    leaf's norm."""
+    from mxnet_tpu_torch import autograd
+
+    net = new_resnet(dev, 0)
+    x, y = bench_batch(RESNET_B, RESNET_SIZE, "NCHW", dev)
+    state, step = functional_step_fn(net, torch.bfloat16)
+    loss_f, _, grads_f = step(state, x, y)
+    net.cast("bfloat16")
+    with autograd.record():
+        logits = net(x.to(torch.bfloat16)).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        loss_g = -torch.take_along_dim(logp, y[:, None], dim=1).mean()
+    loss_g.backward()
+    params = dict(net.named_parameters())
+    rel, equal = {}, 0
+    for n, g in grads_f.items():
+        other = params[n].grad.float()
+        equal += bool(torch.equal(g, other))
+        rel[n] = ((g - other).norm() / other.norm().clamp_min(1e-30)).item()
+    worst = max(rel, key=rel.get)
+    phase("functional_vs_gluon", batch=(RESNET_B, 3, RESNET_SIZE,
+                                        RESNET_SIZE),
+          loss_functional=loss_f.item(), loss_gluon=loss_g.item(),
+          leaves=len(rel), bitwise_equal_leaves=equal,
+          max_rel_gap=rel[worst], its_leaf=worst,
+          bound=FUNCTIONAL_GLUON_REL)
+    if rel[worst] > FUNCTIONAL_GLUON_REL:
+        fail("functional_vs_gluon: the gradient of %s is %.3g from the "
+             "Gluon path's, relative to its norm" % (worst, rel[worst]))
+
+
+def functional_vs_cpu(dev):
+    """Phase: bench.py's step in fp32 (TF32 off) at RESNET_VS_CPU's batch
+    and image size, on the card and on the CPU from the same seeded
+    weights: step-1 logits at RESNET_LOGIT_BOUND and each leaf's gradient
+    at RESNET_GRAD_REL_BOUND, as ``resnet_vs_cpu`` holds them."""
+    B, side, _ = RESNET_VS_CPU
+    runs = []
+    for device in ("cpu", dev):
+        net = new_resnet(device, 1)
+        state, step = functional_step_fn(net, torch.float32)
+        x, y = bench_batch(B, side, "NCHW", device)
+        loss, logits, grads = step(state, x, y)
+        runs.append((loss.item(), logits.cpu(),
+                     {n: g.cpu() for n, g in grads.items()}))
+    want, got = runs
+    logit_err = (got[1] - want[1]).abs().max().item()
+    rel = leaf_rel_errs(without_conv_biases(got[2]), want[2])
+    worst = max(rel, key=rel.get)
+    phase("functional_vs_cpu", batch=(B, 3, side, side), dtype="float32",
+          loss=got[0], cpu_loss=want[0], step1_logits_max_abs_err=logit_err,
+          logit_bound=RESNET_LOGIT_BOUND, step1_grad_max_rel_err=rel[worst],
+          its_leaf=worst,
+          median_leaf_rel_err=float(np.median(list(rel.values()))),
+          grad_rel_bound=RESNET_GRAD_REL_BOUND)
+    if not logit_err <= RESNET_LOGIT_BOUND:
+        fail("functional_vs_cpu: step-1 logits %.3g from the CPU's; bound "
+             "%g" % (logit_err, RESNET_LOGIT_BOUND))
+    if not rel[worst] <= RESNET_GRAD_REL_BOUND:
+        fail("functional_vs_cpu: the gradient of %s is %.3g from the CPU's, "
+             "relative to its norm; bound %g"
+             % (worst, rel[worst], RESNET_GRAD_REL_BOUND))
+
+
+def lm_functional(cuda_ops, dev, net):
+    """Phase: the full-width LM's forward through ``functional_call`` at
+    B = LM_FUNCTIONAL_B, T = MAX_LEN: its logits equal the module call's,
+    and it launches the flash-attention kernel once a layer.  Returns the
+    functional forward's launches."""
+    from mxnet_tpu_torch.gluon.block import functional_call, param_values
+
+    B, T = LM_FUNCTIONAL_B, MAX_LEN
+    g = torch.Generator(device=dev).manual_seed(2)
+    idx = torch.randint(0, VOCAB, (B, T), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos = torch.arange(T, device=dev, dtype=torch.int32).expand(B, T)
+    values = param_values(net)
+    with torch.no_grad():
+        want = net(idx, pos)
+        reset_launches(cuda_ops)
+        outs, aux = functional_call(net, values, idx, pos)
+        launches = cuda_ops.flash_attention.launches
+    got = outs[0]
+    err = (got - want).abs().max().item()
+    phase("lm_functional", batch=(B, T), launches=launches, aux=len(aux),
+          logits_max_abs_err=err, equal=bool(torch.equal(got, want)))
+    if launches != DEPTH:
+        fail("lm_functional launched flash_attention %d times, not %d"
+             % (launches, DEPTH))
+    if not torch.equal(got, want):
+        fail("lm_functional: the logits are %.3g from the module call's"
+             % err)
+    return launches
+
+
+def params_io(net, card):
+    """Phase: ``save_parameters`` of the model trained on the card, loaded
+    into a fresh CPU model, bit for bit; and ``nd.save`` of the same
+    arrays from the card and from the CPU writes the same bytes."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "resnet50_v1.params")
+        t0 = time.perf_counter()
+        net.save_parameters(path)
+        save_s = time.perf_counter() - t0
+        cpu_net = vision.resnet50_v1(classes=net.output.weight.shape[0],
+                                     device="cpu")
+        t0 = time.perf_counter()
+        cpu_net.load_parameters(path)
+        load_s = time.perf_counter() - t0
+        want = net.state_dict()
+        got = cpu_net.state_dict()
+        differ = [n for n, t in want.items()
+                  if not torch.equal(t.cpu(), got[n])]
+        if list(got) != list(want) or differ:
+            fail("params_io: %d arrays differ after the round trip, first %s"
+                 % (len(differ), differ[:1]))
+        arrays = {n: mx.nd.NDArray(t) for n, t in want.items()}
+        mx.nd.save(str(Path(tmp) / "card.params"), arrays)
+        mx.nd.save(str(Path(tmp) / "cpu.params"),
+                   {n: mx.nd.NDArray(t.cpu()) for n, t in want.items()})
+        same = (Path(tmp) / "card.params").read_bytes() \
+            == (Path(tmp) / "cpu.params").read_bytes()
+        size = Path(path).stat().st_size
+    if not same:
+        fail("params_io: nd.save from the card and from the CPU differ")
+    phase("params_io", arrays=len(want), bytes=size, save_s=save_s,
+          load_s=load_s, bitwise_equal=True, card_cpu_bytes_equal=same,
+          card='"%s"' % card)
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -1803,12 +2150,19 @@ def main():
     del state
     lm_bf16_vs_cpu(cuda_ops, dev)
 
+    card_lm = seeded_init(dev, smi)
+    launches_functional = lm_functional(cuda_ops, dev, card_lm)
+    del card_lm
+
     resnet_model(dev, smi)
     reset_launches(cuda_ops)
     states = resnet_train(dev, smi)
     resnet_profile(*states["NCHW"], smi)
     del states
     resnet_vs_cpu(dev)
+    functional_step(dev, smi)
+    functional_vs_gluon(dev)
+    functional_vs_cpu(dev)
     states = resnet_train(dev, smi, "bfloat16")
     for layout, state in states.items():
         resnet_profile(*state, smi, label="resnet_bf16_profile",
@@ -1828,11 +2182,12 @@ def main():
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
               "launches": launches_serve + launches_train
-              + launches_train_bf16 + launches_nd,
+              + launches_train_bf16 + launches_nd + launches_functional,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
               "launches_train_bf16": launches_train_bf16,
-              "launches_nd": launches_nd}
+              "launches_nd": launches_nd,
+              "launches_functional": launches_functional}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

@@ -13,11 +13,14 @@ __all__ = ["Activation"]
 
 
 class Activation(Block):
-    def __init__(self, activation):
-        super().__init__()
+    def __init__(self, activation, prefix=None, params=None):
         if activation not in ACTIVATIONS:
             raise ValueError("unknown act_type %s" % activation)
         self._act_type = activation
+        super().__init__(prefix=prefix, params=params)
+
+    def _alias(self):
+        return self._act_type
 
     def forward(self, x):
         return ACTIVATIONS[self._act_type](x)

@@ -13,9 +13,10 @@ torch permuted views of its input and weight: channel-first in shape and
 channels-last in memory (``torch.channels_last``, the layout cuDNN runs
 natively), so nothing is copied, and it permutes the result back.
 
-Gluon infers ``in_channels`` from the first batch; here it is an explicit
-argument, as ``Dense``'s ``in_units`` is.  Transposed convolutions, the
-1-D and 3-D pools and ``ReflectionPad2D`` are not ported yet.
+``in_channels=0`` (the default) leaves the weight's input dimension to the
+first batch (``_shape_hook``, :130-140), as Gluon does; a channel-last
+weight's is its last.  Transposed convolutions, the 1-D and 3-D pools and
+``ReflectionPad2D`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ from ...context import resolve_device
 from ...ops.nn_ops import _channel_first, convolution, pooling  # noqa: F401
 from ..block import Block
 from .activations import Activation
-from .basic_layers import _param
 
 __all__ = ["channels_last", "Conv1D", "Conv2D", "Conv3D", "MaxPool2D",
            "AvgPool2D", "GlobalMaxPool2D", "GlobalAvgPool2D"]
@@ -74,36 +74,53 @@ def _pair(v, n):
 
 class _Conv(Block):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
-                 groups, layout, in_channels, activation, use_bias, device):
-        super().__init__()
+                 groups, layout, in_channels, activation, use_bias,
+                 weight_initializer, bias_initializer, prefix, params,
+                 device):
+        super().__init__(prefix=prefix, params=params)
         nd = len(kernel_size)
-        if not in_channels:
-            raise ValueError("in_channels must be given: the port does not "
-                             "infer shapes from the first batch")
         if in_channels % groups or channels % groups:
             raise ValueError("in_channels %d and channels %d must be "
                              "multiples of groups %d"
                              % (in_channels, channels, groups))
-        device = resolve_device(device)
-        self._kernel = tuple(kernel_size)
-        self._strides = _pair(strides, nd)
-        self._padding = _pair(padding, nd)
-        self._dilation = _pair(dilation, nd)
-        self._groups = groups
-        self._layout = _resolve_layout(layout, nd)
-        self._channel_last = not self._layout.startswith("NC")
-        per_group = in_channels // groups
-        if self._channel_last:
-            self.weight = _param((channels,) + self._kernel + (per_group,),
-                                 device)
-            # stored = canonical (O, I, *kernel) permuted: initializers
-            # draw in canonical order (the JAX Parameter's init_perm)
-            self.weight.init_perm = (0,) + tuple(range(2, 2 + nd)) + (1,)
-        else:
-            self.weight = _param((channels, per_group) + self._kernel,
-                                 device)
-        self.bias = _param((channels,), device) if use_bias else None
-        self.act = Activation(activation) if activation is not None else None
+        self._device = resolve_device(device)
+        with self.name_scope():
+            self._channels = channels
+            self._kernel = tuple(kernel_size)
+            self._strides = _pair(strides, nd)
+            self._padding = _pair(padding, nd)
+            self._dilation = _pair(dilation, nd)
+            self._groups = groups
+            self._layout = _resolve_layout(layout, nd)
+            self._channel_last = not self._layout.startswith("NC")
+            per_group = in_channels // groups
+            if self._channel_last:
+                wshape = (channels,) + self._kernel + (per_group,)
+                # stored = canonical (O, I, *kernel) permuted: initializers
+                # draw in canonical order
+                init_perm = (0,) + tuple(range(2, 2 + nd)) + (1,)
+            else:
+                wshape = (channels, per_group) + self._kernel
+                init_perm = None
+            self.weight = self.params.get("weight", shape=wshape,
+                                          init=weight_initializer,
+                                          allow_deferred_init=True,
+                                          init_perm=init_perm)
+            if use_bias:
+                self.bias = self.params.get("bias", shape=(channels,),
+                                            init=bias_initializer,
+                                            allow_deferred_init=True)
+            else:
+                self.bias = None
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
+
+    def _shape_hook(self, x, *args):
+        per_group = x.shape[-1 if self._channel_last else 1] // self._groups
+        self._reg_params["weight"].shape = (
+            (self._channels,) + self._kernel + (per_group,)
+            if self._channel_last
+            else (self._channels, per_group) + self._kernel)
 
     def forward(self, x):
         y = convolution(x, self.weight, self.bias, self._strides,
@@ -115,29 +132,37 @@ class _Conv(Block):
 class Conv1D(_Conv):
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  dilation=1, groups=1, layout=None, activation=None,
-                 use_bias=True, in_channels=0, device=None):
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, prefix=None,
+                 params=None, device=None):
         super().__init__(channels, _pair(kernel_size, 1), strides, padding,
                          dilation, groups, layout, in_channels, activation,
-                         use_bias, device)
+                         use_bias, weight_initializer, bias_initializer,
+                         prefix, params, device)
 
 
 class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, layout=None, activation=None,
-                 use_bias=True, in_channels=0, device=None):
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, prefix=None,
+                 params=None, device=None):
         super().__init__(channels, _pair(kernel_size, 2), strides, padding,
                          dilation, groups, layout, in_channels, activation,
-                         use_bias, device)
+                         use_bias, weight_initializer, bias_initializer,
+                         prefix, params, device)
 
 
 class Conv3D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1, 1),
                  padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
-                 layout=None, activation=None, use_bias=True, in_channels=0,
-                 device=None):
+                 layout=None, activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, prefix=None, params=None, device=None):
         super().__init__(channels, _pair(kernel_size, 3), strides, padding,
                          dilation, groups, layout, in_channels, activation,
-                         use_bias, device)
+                         use_bias, weight_initializer, bias_initializer,
+                         prefix, params, device)
 
 
 class _Pooling(Block):
@@ -147,8 +172,9 @@ class _Pooling(Block):
     them."""
 
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, layout, count_include_pad=True):
-        super().__init__()
+                 pool_type, layout, count_include_pad=True, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
         self._layout = _resolve_layout(layout, 2)
         self._channel_last = not self._layout.startswith("NC")
         self._kernel = _pair(pool_size, 2)
@@ -160,6 +186,9 @@ class _Pooling(Block):
         self._type = pool_type
         self._count_include_pad = count_include_pad
 
+    def _alias(self):
+        return "pool"
+
     def forward(self, x):
         return pooling(x, self._kernel, self._strides, self._padding,
                        self._type, self._ceil_mode, self._global,
@@ -168,23 +197,26 @@ class _Pooling(Block):
 
 class MaxPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout=None, ceil_mode=False):
+                 layout=None, ceil_mode=False, **kwargs):
         super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "max", layout)
+                         "max", layout, **kwargs)
 
 
 class AvgPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout=None, ceil_mode=False, count_include_pad=True):
+                 layout=None, ceil_mode=False, count_include_pad=True,
+                 **kwargs):
         super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "avg", layout, count_include_pad)
+                         "avg", layout, count_include_pad, **kwargs)
 
 
 class GlobalMaxPool2D(_Pooling):
-    def __init__(self, layout=None):
-        super().__init__((1, 1), None, 0, True, True, "max", layout)
+    def __init__(self, layout=None, **kwargs):
+        super().__init__((1, 1), None, 0, True, True, "max", layout,
+                         **kwargs)
 
 
 class GlobalAvgPool2D(_Pooling):
-    def __init__(self, layout=None):
-        super().__init__((1, 1), None, 0, True, True, "avg", layout)
+    def __init__(self, layout=None, **kwargs):
+        super().__init__((1, 1), None, 0, True, True, "avg", layout,
+                         **kwargs)

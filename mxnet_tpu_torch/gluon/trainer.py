@@ -16,6 +16,13 @@ applies that gradient again (zeros before the first backward).
 ``torch.autograd.grad`` does not run the accumulator and leaves ``.grad``
 alone.  A parameter with ``requires_grad=False`` (``grad_req='null'``) is
 left alone.
+
+``params`` is ``net.collect_params()`` (a ``ParameterDict``) or a list of
+Gluon parameters, as in MXNet; their ``grad_req='null'`` entries
+(BatchNorm's running statistics) keep their indices and are skipped.  A
+parameter whose shape waits for the block's first call is looked up at the
+first ``step``.  Torch parameters (``net.named_parameters()``, a list or a
+dict) are accepted too.
 """
 from __future__ import annotations
 
@@ -52,10 +59,10 @@ class _GradWrite:
 
 
 def _param_list(params):
-    """``params`` as a list of parameters: a list or tuple of them, a dict
-    of them, or (name, parameter) pairs such as
-    ``module.named_parameters()`` gives."""
-    if isinstance(params, dict):
+    """``params`` as a list of Gluon or torch parameters: a
+    ``ParameterDict`` or dict of them, a list or tuple of them, or (name,
+    parameter) pairs such as ``module.named_parameters()`` gives."""
+    if isinstance(params, (dict, parameter.ParameterDict)):
         params = list(params.values())
     elif isinstance(params, (list, tuple)) or hasattr(params, "__next__"):
         params = [p[1] if isinstance(p, tuple) else p for p in params]
@@ -63,7 +70,7 @@ def _param_list(params):
         raise ValueError("First argument must be a list or dict of "
                          "Parameters, got %s." % type(params))
     for param in params:
-        if not isinstance(param, torch.nn.Parameter):
+        if not isinstance(param, (torch.nn.Parameter, parameter.Parameter)):
             raise ValueError("First argument must be a list or dict of "
                              "Parameters, got list of %s." % type(param))
     return params
@@ -79,11 +86,7 @@ class Trainer:
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device"):
-        self._params = _param_list(params)
-        devices = {p.device for p in self._params}
-        if len(devices) > 1:
-            raise MXNetError("All Parameters must be on one device, got %s"
-                             % sorted(str(d) for d in devices))
+        self._entries = _param_list(params)
         if kvstore is not None and (not isinstance(kvstore, str)
                                     or "dist" in kvstore):
             raise MXNetError(
@@ -91,7 +94,7 @@ class Trainer:
                 "without a kvstore" % (kvstore,))
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
-        param_dict = dict(enumerate(self._params))
+        param_dict = dict(enumerate(self._entries))
         if isinstance(optimizer, opt.Optimizer):
             if optimizer_params:
                 raise ValueError("optimizer_params must be None if optimizer "
@@ -102,8 +105,28 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
-        self._grad_writes = [_GradWrite(p) for p in self._params
-                             if p.requires_grad]
+        self._params = None
+        if not any(isinstance(p, parameter.Parameter) and p._is_lazy()
+                   for p in self._entries):
+            self._init_params()
+
+    def _init_params(self):
+        """Resolve the tensors (Gluon parameters' registered ones; None for
+        a ``grad_req='null'`` entry) and hook their gradient writes."""
+        params = []
+        for p in self._entries:
+            if isinstance(p, parameter.Parameter):
+                params.append(None if p.grad_req == "null"
+                              else p._check_and_get())
+            else:
+                params.append(p)
+        devices = {p.device for p in params if p is not None}
+        if len(devices) > 1:
+            raise MXNetError("All Parameters must be on one device, got %s"
+                             % sorted(str(d) for d in devices))
+        self._params = params
+        self._grad_writes = [_GradWrite(p) for p in params
+                             if p is not None and p.requires_grad]
 
     @property
     def learning_rate(self):
@@ -129,8 +152,10 @@ class Trainer:
         self._update()
 
     def _update(self):
+        if self._params is None:
+            self._init_params()
         for i, param in enumerate(self._params):
-            if param.requires_grad:
+            if param is not None and param.requires_grad:
                 grad = param.grad
                 self._updater(i, torch.zeros_like(param) if grad is None
                               else grad, param)

@@ -1,90 +1,400 @@
 """Weight initializers (counterpart of ``mxnet_tpu/initializer.py``).
 
-Only what the ported models use: :class:`Xavier` (uniform, ``avg``,
-magnitude 3), :class:`Zero` and :class:`One`; BatchNorm's running
-statistics are reset to 0 (mean) and 1 (variance), as the JAX package's
-initializers reset them.  Draws come from a
-``torch.Generator`` the caller seeds; they are made on the CPU and copied
-to the parameter's device, so a seed gives the same weights on every
-device.  The JAX package draws from its own RNG, so the same seed does not
-give the same numbers there: to compare the two, carry the JAX weights
-across with ``convert.load_mxnet_params`` instead.
+The JAX package's whole set: :class:`Zero`, :class:`One`,
+:class:`Constant`, :class:`Uniform` (Gluon's default), :class:`Normal`,
+:class:`Orthogonal`, :class:`Xavier` (``uniform``/``gaussian``,
+``avg``/``in``/``out``), :class:`MSRAPrelu`, :class:`Bilinear`,
+:class:`LSTMBias`, :class:`FusedRNN`, :class:`Mixed` and :class:`Load`;
+:class:`InitDesc`, :func:`register`, :func:`create` and the ``zeros``/
+``ones`` aliases.  An initializer is called on ``(desc, arr)``, a name and
+an NDArray, and dispatches on the name's suffix as the JAX one does
+(``weight`` -> ``_init_weight``; ``bias``/``beta``/``running_mean`` -> 0;
+``gamma``/``running_var`` -> 1; an ``__init__`` attribute of an
+:class:`InitDesc` names another initializer).
+
+Random draws come from ``random.derived_numpy_rng()``, float64 numpy
+draws cast to float32, exactly as the JAX initializers draw them, so the
+same ``mx.random.seed(n)`` gives the same weights in both packages.  A
+parameter stored permuted (a channel-last convolution's) is drawn in its
+canonical shape and permuted by ``gluon.parameter.Parameter``
+(``init_perm``), as the JAX package does.
 """
 from __future__ import annotations
 
-import math
+import json
+import re
+import threading
 
+import numpy as np
 import torch
 
-__all__ = ["Initializer", "Xavier", "Zero", "One", "initialize"]
+from . import random as _rand
+
+__all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
+           "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "LSTMBias", "FusedRNN", "Mixed", "Load"]
+
+_INITIALIZER_REGISTRY = {}
+_INITIALIZER_REGISTRY_LOCK = threading.Lock()
+
+
+def register(klass):
+    """Register ``klass`` under its lower-cased name, for :func:`create`
+    and ``InitDesc`` attributes."""
+    with _INITIALIZER_REGISTRY_LOCK:
+        _INITIALIZER_REGISTRY[klass.__name__.lower()] = klass
+    return klass
+
+
+class InitDesc(str):
+    """A parameter's name, with its attributes and the global
+    initializer."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
 
 
 class Initializer:
-    """Fills a parameter or buffer by its name's suffix, as the JAX package
-    does: ``weight`` -> :meth:`_init_weight`, ``bias``/``beta``/
-    ``running_mean`` -> 0, ``gamma``/``running_var`` -> 1."""
+    """Base initializer; callable on ``(InitDesc or name, NDArray)``."""
 
-    def __call__(self, name, param, generator):
-        with torch.no_grad():
-            if name.endswith("weight"):
-                self._init_weight(name, param, generator)
-            elif name.endswith(("bias", "beta", "running_mean")):
-                param.zero_()
-            elif name.endswith(("gamma", "running_var")):
-                param.fill_(1.0)
-            else:
-                raise ValueError(
-                    "Unknown initialization pattern for %s: parameter names "
-                    "end in weight, bias, gamma, beta, running_mean or "
-                    "running_var" % name)
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+        self._verbose = False
+        self._print_func = None
 
-    def _init_weight(self, name, param, generator):
+    def set_verbosity(self, verbose=False, print_func=None):
+        self._verbose = verbose
+        self._print_func = print_func
+        return self
+
+    def dumps(self):
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
+
+    def __call__(self, desc, arr):
+        if not isinstance(desc, str):
+            raise TypeError("desc must be a string or InitDesc")
+        if isinstance(desc, InitDesc) and desc.global_init is None:
+            desc.global_init = self
+        init = getattr(desc, "attrs", {}).get("__init__", "")
+        if init:
+            klass, kwargs = json.loads(init)
+            _INITIALIZER_REGISTRY[klass.lower()](**kwargs)._init_weight(
+                desc, arr)
+            return
+        name = str(desc)
+        if name.endswith("weight"):
+            self._init_weight(name, arr)
+        elif name.endswith("bias"):
+            self._init_bias(name, arr)
+        elif name.endswith("gamma"):
+            self._init_gamma(name, arr)
+        elif name.endswith("beta"):
+            self._init_beta(name, arr)
+        elif name.endswith(("running_mean", "moving_mean")):
+            self._init_zero(name, arr)
+        elif name.endswith(("running_var", "moving_var")):
+            self._init_one(name, arr)
+        elif name.endswith(("moving_inv_var", "moving_avg")):
+            self._init_zero(name, arr)
+        elif name.endswith(("min", "max")):
+            self._init_zero(name, arr)
+        elif name.endswith("parameters"):
+            self._init_rnn_packed(name, arr)
+        else:
+            self._init_default(name, arr)
+
+    def _init_rnn_packed(self, name, arr):
+        if isinstance(self, FusedRNN):
+            self._init_weight(name, arr)
+        else:
+            self._set(arr, _rand.derived_numpy_rng().uniform(-0.07, 0.07,
+                                                              arr.shape))
+
+    def _set(self, arr, np_value):
+        arr[:] = np_value.astype(np.float32) \
+            if np_value.dtype == np.float64 else np_value
+
+    def _init_weight(self, name, arr):
         raise NotImplementedError("must override _init_weight")
 
+    def _init_bias(self, name, arr):
+        self._init_zero(name, arr)
 
+    def _init_gamma(self, name, arr):
+        self._init_one(name, arr)
+
+    def _init_beta(self, name, arr):
+        self._init_zero(name, arr)
+
+    def _init_zero(self, name, arr):
+        arr[:] = 0.0
+
+    def _init_one(self, name, arr):
+        arr[:] = 1.0
+
+    def _init_default(self, name, arr):
+        raise ValueError(
+            "Unknown initialization pattern for %s. Default initialization "
+            "is now limited to \"weight\", \"bias\", \"gamma\", and "
+            "\"beta\". Either use mx.sym.Variable(init=mx.init.*) or name "
+            "your params with those suffixes." % name)
+
+
+@register
 class Zero(Initializer):
-    def _init_weight(self, name, param, generator):
-        param.zero_()
+    def _init_weight(self, name, arr):
+        arr[:] = 0.0
+    _init_default = _init_weight
 
 
+@register
 class One(Initializer):
-    def _init_weight(self, name, param, generator):
-        param.fill_(1.0)
+    def _init_weight(self, name, arr):
+        arr[:] = 1.0
+    _init_default = _init_weight
 
 
+@register
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, name, arr):
+        arr[:] = self.value
+    _init_default = _init_weight
+
+
+@register
+class Uniform(Initializer):
+    """Uniform on [-scale, scale]."""
+
+    def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
+        self.scale = scale
+
+    def _init_weight(self, name, arr):
+        self._set(arr, _rand.derived_numpy_rng().uniform(
+            -self.scale, self.scale, arr.shape))
+
+
+@register
+class Normal(Initializer):
+    """Normal with mean 0 and standard deviation ``sigma``."""
+
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, name, arr):
+        self._set(arr, _rand.derived_numpy_rng().normal(0, self.sigma,
+                                                        arr.shape))
+
+
+@register
+class Orthogonal(Initializer):
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _rand.derived_numpy_rng().uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = _rand.derived_numpy_rng().normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        self._set(arr, (self.scale * res).reshape(arr.shape))
+
+
+@register
 class Xavier(Initializer):
-    """Uniform on [-s, s], s = sqrt(3 / fan_avg): the JAX ``Xavier``'s
-    defaults (``uniform``, ``avg``, magnitude 3), the only ones the ported
-    models use.  A weight stored permuted (a channel-last convolution's,
-    whose ``init_perm`` says how) is drawn in canonical order and fans,
-    then permuted, as the JAX package draws it."""
+    """Uniform on [-s, s] or normal with deviation s, s = sqrt(magnitude /
+    factor), the factor the fans' average, fan in or fan out."""
 
-    def _init_weight(self, name, param, generator):
-        perm = getattr(param, "init_perm", None)
-        shape = tuple(param.shape)
-        if perm is not None:
-            canonical = [0] * len(shape)
-            for stored_axis, axis in enumerate(perm):
-                canonical[axis] = shape[stored_axis]
-            shape = tuple(canonical)
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        hw_scale = 1.0
         if len(shape) < 2:
             raise ValueError("Xavier initializer cannot be applied to vector "
                              "%s" % name)
-        hw_scale = math.prod(shape[2:])
+        if len(shape) > 2:
+            hw_scale = np.prod(shape[2:])
         fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
-        scale = math.sqrt(3.0 / ((fan_in + fan_out) / 2.0))
-        draw = torch.rand(shape, generator=generator) * (2 * scale) - scale
-        param.copy_(draw if perm is None else draw.permute(perm))
+        try:
+            factor = {"avg": (fan_in + fan_out) / 2.0,
+                      "in": fan_in,
+                      "out": fan_out}[self.factor_type]
+        except KeyError:
+            raise ValueError("Incorrect factor type %r" % (self.factor_type,))
+        scale = np.sqrt(self.magnitude / factor)
+        if self.rnd_type == "uniform":
+            self._set(arr, _rand.derived_numpy_rng().uniform(-scale, scale,
+                                                             shape))
+        elif self.rnd_type == "gaussian":
+            self._set(arr, _rand.derived_numpy_rng().normal(0, scale, shape))
+        else:
+            raise ValueError("Unknown random type")
 
 
-def initialize(module, init=None, *, generator):
-    """Fill every parameter and buffer of ``module``
-    (``Block.initialize``'s counterpart).  ``init`` defaults to
-    :class:`Xavier`; ``generator`` is the caller's seeded CPU
-    ``torch.Generator``."""
-    init = Xavier() if init is None else init
-    for name, param in module.named_parameters():
-        init(name, param, generator)
-    for name, buf in module.named_buffers():
-        init(name, buf, generator)
-    return module
+@register
+class MSRAPrelu(Xavier):
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    def _init_weight(self, name, arr):
+        weight = np.zeros(arr.shape, dtype=np.float32)
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight.flat[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        self._set(arr, weight)
+
+
+@register
+class LSTMBias(Initializer):
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = np.zeros(arr.shape, dtype=np.float32)
+        num_hidden = int(b.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._set(arr, b)
+    _init_default = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """Initialize the packed parameter blob of the fused RNN op, one
+    matrix at a time."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = _INITIALIZER_REGISTRY[klass.lower()](**kwargs)
+        super().__init__(init=init.dumps() if init else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .ndarray.ndarray import NDArray
+        ngates = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4,
+                  "gru": 3}[self._mode]
+        H = self._num_hidden
+        sub_init = self._init
+        if sub_init is None:
+            sub_init = getattr(desc, "global_init", None) or Uniform(0.07)
+        np_arr = np.array(arr.asnumpy())
+        L, D, G = self._num_layers, 2 if self._bidirectional else 1, ngates
+        n_w = np_arr.size - 2 * L * D * G * H
+        rest = (L - 1) * D * (G * H * H * D + G * H * H)
+        in_size0 = (n_w - rest - D * G * H * H) // (D * G * H)
+        offset = 0
+        for layer in range(L):
+            in_size = int(in_size0) if layer == 0 else H * D
+            for _ in range(D):
+                for wname, wshape in (("i2h_weight", (G * H, in_size)),
+                                      ("h2h_weight", (G * H, H))):
+                    size = wshape[0] * wshape[1]
+                    tmp = NDArray(torch.zeros(wshape))
+                    sub_init("%s_l%d_%s" % (str(desc), layer, wname), tmp)
+                    np_arr[offset:offset + size] = tmp.asnumpy().reshape(-1)
+                    offset += size
+        for layer in range(L):
+            for _ in range(D):
+                for _bname in ("i2h_bias", "h2h_bias"):
+                    block = np.zeros(G * H, dtype=np.float32)
+                    if self._mode == "lstm":
+                        block[H:2 * H] = self._forget_bias / 2.0
+                    np_arr[offset:offset + G * H] = block
+                    offset += G * H
+        arr[:] = np_arr
+    _init_default = _init_weight
+
+
+@register
+class Mixed(Initializer):
+    """The first initializer whose pattern matches the parameter's name."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__()
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must have same "
+                             "length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr)
+                return
+        raise ValueError("Parameter name %s did not match any pattern"
+                         % name)
+
+
+@register
+class Load:
+    """Initialize from existing arrays (``{name: array}``; ``arg:``/``aux:``
+    prefixes dropped), others by ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {(n[4:] if n.startswith(("arg:", "aux:")) else n): a
+                      for n, a in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if tuple(arr.shape) != tuple(self.param[name].shape):
+                raise ValueError("Parameter %s has wrong shape" % name)
+            arr[:] = self.param[name]
+        else:
+            if self.default_init is None:
+                raise ValueError("Cannot init parameter %s (not in loaded "
+                                 "params)" % name)
+            self.default_init(name, arr)
+
+
+# string aliases used across the Gluon layer definitions
+_INITIALIZER_REGISTRY["zeros"] = Zero
+_INITIALIZER_REGISTRY["ones"] = One
+
+
+def create(name, **kwargs):
+    """An initializer: ``name`` itself if it is one, else the registered
+    class of that name built with ``kwargs``."""
+    if isinstance(name, (Initializer, Load)):
+        return name
+    return _INITIALIZER_REGISTRY[name.lower()](**kwargs)
+

@@ -15,17 +15,21 @@ and ``metric.Accuracy``, on the card by default:
         --network resnet18_v1 --num-classes 10 --image-shape 3,32,32
 
 The data is the example's synthetic set: max(10 x batch, 320) images drawn
-by ``RandomState(0)``, uniform in [-1, 1), with random labels, all float32.
-It is made once and kept on the device.  The JAX iterator shuffles it with
-the JAX package's own RNG stream, which waits for the port of
-``random.py``; this loop takes the batches in order (a last, partial batch
-is padded from the start, as ``NDArrayIter``'s default ``pad`` does).
+by ``RandomState(0)``, uniform in [-1, 1), with random labels, all float32,
+kept on the device in an ``io.NDArrayIter(shuffle=True)``.  The weights
+and the batch order come from the framework's seeded stream
+(``random.py``), in the reference's order: the iterator's shuffle, the
+weights whose shapes are known at ``initialize``, the rest at the first
+call (one batch, as ``common.py:52-55``), then the ``reset``'s shuffle.  So
+``mx.random.seed(n)`` before ``main`` gives the JAX run's weights and
+batches.
 
 ``--dtype bfloat16`` casts the initialized network to bf16 before the
-Trainer is built (BatchNorm included: the JAX ``BatchNorm.cast`` keeps
-fp32 only for float16) and each batch's data before its forward; the
-labels stay fp32.  SGD then updates the bf16 weights directly, with bf16
-momentum: the example leaves ``multi_precision`` at False.
+Trainer is built over ``net.collect_params()`` (BatchNorm included: the
+JAX ``BatchNorm.cast`` keeps fp32 only for float16) and each batch's
+data before its forward; the labels stay fp32.  SGD then updates the
+bf16 weights directly, with bf16 momentum: the example leaves
+``multi_precision`` at False.
 Not ported yet: ``--data-train`` (``ImageRecordIter``), the fused step
 (``--fused-step 1``), ``net.hybridize()`` (CachedOp) and
 ``--model-prefix`` (``export``).
@@ -46,6 +50,7 @@ from ..context import resolve_device
 from ..gluon import Trainer
 from ..gluon.loss import SoftmaxCrossEntropyLoss
 from ..gluon.model_zoo import vision
+from ..io import NDArrayIter
 from ..metric import Accuracy
 
 __all__ = ["add_fit_args", "get_synthetic_iter", "train_step", "fit_gluon",
@@ -71,24 +76,14 @@ def add_fit_args(parser):
 
 
 def get_synthetic_iter(args, image_shape=(3, 224, 224), device=None):
-    """The example's synthetic set as a list of (data, label) batches on
-    ``device``, in order; float32 data of ``image_shape``, float32
-    labels."""
+    """The example's synthetic set in an ``NDArrayIter(shuffle=True)`` on
+    ``device``: float32 data of ``image_shape``, float32 labels."""
     n = max(args.batch_size * 10, 320)
     rng = np.random.RandomState(0)
     X = rng.uniform(-1, 1, (n,) + tuple(image_shape)).astype(np.float32)
     Y = rng.randint(0, args.num_classes, n).astype(np.float32)
-    device = resolve_device(device)
-    X, Y = torch.from_numpy(X).to(device), torch.from_numpy(Y).to(device)
-    B = args.batch_size
-    batches = []
-    for start in range(0, n, B):
-        if start + B <= n:
-            batches.append((X[start:start + B], Y[start:start + B]))
-        else:
-            idx = torch.arange(start, start + B, device=device) % n
-            batches.append((X[idx], Y[idx]))
-    return batches
+    return NDArrayIter(X, Y, batch_size=args.batch_size, shuffle=True,
+                       ctx=resolve_device(device))
 
 
 def train_step(net, trainer, loss_fn, metric, x, y, batch_size):
@@ -106,16 +101,18 @@ def train_step(net, trainer, loss_fn, metric, x, y, batch_size):
 
 
 def fit_gluon(args, net, train_iter):
-    """Initialize ``net`` (Xavier, from a seeded generator) and cast it to
-    ``args.dtype``, then train it ``args.num_epochs`` epochs over
-    ``train_iter``'s (data, label) batches, each batch's data cast to
-    ``args.dtype``; logs speed and accuracy every ``args.disp_batches``
-    batches and at each epoch's end.  Returns ``net``."""
-    initializer.initialize(net, initializer.Xavier(),
-                           generator=torch.Generator().manual_seed(0))
+    """``common.py``'s loop: initialize ``net`` (Xavier), fill its deferred
+    shapes with one batch, ``reset`` the iterator, cast to ``args.dtype``,
+    then train ``args.num_epochs`` epochs over ``train_iter`` (an
+    ``io.DataIter``), each batch's data cast to ``args.dtype``; logs speed
+    and accuracy every ``args.disp_batches`` batches and at each epoch's
+    end.  Returns ``net``."""
+    net.initialize(initializer.Xavier())
+    net(next(iter(train_iter)).data[0])
+    train_iter.reset()
     dtype = as_dtype(args.dtype)
     net.cast(dtype)
-    trainer = Trainer(net.named_parameters(), args.optimizer,
+    trainer = Trainer(net.collect_params(), args.optimizer,
                       {"learning_rate": args.lr, "momentum": args.mom,
                        "wd": args.wd}, kvstore=args.kv_store)
     loss_fn = SoftmaxCrossEntropyLoss()
@@ -124,7 +121,8 @@ def fit_gluon(args, net, train_iter):
         metric.reset()
         tic = time.time()
         nsamples = 0
-        for i, (x, y) in enumerate(train_iter):
+        for i, batch in enumerate(train_iter):
+            x, y = batch.data[0]._data, batch.label[0]._data
             train_step(net, trainer, loss_fn, metric, x.to(dtype), y,
                        args.batch_size)
             nsamples += args.batch_size
@@ -133,6 +131,7 @@ def fit_gluon(args, net, train_iter):
                 logging.info("Epoch[%d] Batch [%d] Speed: %.2f samples/sec "
                              "%s=%f", epoch, i + 1,
                              nsamples / (time.time() - tic), name, acc)
+        train_iter.reset()
         name, acc = metric.get()
         logging.info("Epoch[%d] done in %.1fs %s=%f", epoch,
                      time.time() - tic, name, acc)

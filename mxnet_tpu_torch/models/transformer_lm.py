@@ -4,7 +4,11 @@ the model, :37-96, ``pattern_batch`` and the training loop ``main``,
 
 A GPT-style decoder whose attention runs through the hand-written CUDA
 flash-attention kernel (``ops.cuda_ops.flash_attention``; its plain version
-when the model lies on the CPU).  ``forward(idx, pos_idx)`` takes int32
+when the model lies on the CPU).  It is built as the example builds it:
+the same name scopes and Gluon names (``transformerlm0_block0_...``), the
+embeddings' shapes known and the ``Dense`` and ``LayerNorm`` shapes left to
+the first call, so ``mx.random.seed(n)``, ``initialize(mx.init.Xavier())``
+and one call give the example's weights.  ``forward(idx, pos_idx)`` takes int32
 (B, T) token and position ids and returns (B, T, vocab) logits, in the
 parameters' dtype: ``net.cast("bfloat16")`` runs the whole model, and the
 kernel, in bf16.
@@ -37,17 +41,18 @@ __all__ = ["CausalSelfAttention", "Block", "TransformerLM", "pattern_batch",
 
 
 class CausalSelfAttention(block.Block):
-    def __init__(self, dim, heads, device=None):
-        super().__init__()
+    def __init__(self, dim, heads, device=None, **kwargs):
+        super().__init__(**kwargs)
         if dim % heads:
             raise ValueError("dim %d is not a multiple of heads %d"
                              % (dim, heads))
         self._h = heads
         self._dk = dim // heads
-        self.qkv = Dense(3 * dim, dim, use_bias=False, flatten=False,
-                         device=device)
-        self.out = Dense(dim, dim, use_bias=False, flatten=False,
-                         device=device)
+        with self.name_scope():
+            self.qkv = Dense(3 * dim, use_bias=False, flatten=False,
+                             device=device)
+            self.out = Dense(dim, use_bias=False, flatten=False,
+                             device=device)
 
     def forward(self, x):
         # x: (B, T, C) -> q/k/v (B, H, T, Dk) -> fused causal attention
@@ -64,15 +69,16 @@ class CausalSelfAttention(block.Block):
 
 
 class Block(block.Block):
-    def __init__(self, dim, heads, device=None):
-        super().__init__()
-        self.ln1 = LayerNorm(dim, device=device)
-        self.attn = CausalSelfAttention(dim, heads, device=device)
-        self.ln2 = LayerNorm(dim, device=device)
-        self.mlp = HybridSequential(
-            Dense(4 * dim, dim, activation="relu", flatten=False,
-                  device=device),
-            Dense(dim, 4 * dim, flatten=False, device=device))
+    def __init__(self, dim, heads, device=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ln1 = LayerNorm(device=device)
+            self.attn = CausalSelfAttention(dim, heads, device=device)
+            self.ln2 = LayerNorm(device=device)
+            self.mlp = HybridSequential(prefix="")
+            self.mlp.add(Dense(4 * dim, activation="relu", flatten=False,
+                               device=device))
+            self.mlp.add(Dense(dim, flatten=False, device=device))
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
@@ -81,20 +87,22 @@ class Block(block.Block):
 
 class TransformerLM(block.Block):
     """Token + position embeddings, ``depth`` blocks, final LayerNorm and
-    a vocab head.  Built on ``device`` (default ``cuda:0``); parameters are
-    uninitialized until ``initializer.initialize`` or
-    ``convert.load_mxnet_params`` fills them."""
+    a vocab head, on ``device`` (default ``cuda:0``).  ``initialize`` draws
+    the embeddings; the other layers draw at the first call, which fills
+    their shapes (or take theirs from a load)."""
 
     def __init__(self, vocab, dim=64, heads=4, depth=2, max_len=256,
-                 device=None):
-        super().__init__()
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
         device = resolve_device(device)
-        self.tok = Embedding(vocab, dim, device=device)
-        self.pos = Embedding(max_len, dim, device=device)
-        self.blocks = HybridSequential(
-            *[Block(dim, heads, device=device) for _ in range(depth)])
-        self.ln_f = LayerNorm(dim, device=device)
-        self.head = Dense(vocab, dim, flatten=False, device=device)
+        with self.name_scope():
+            self.tok = Embedding(vocab, dim, device=device)
+            self.pos = Embedding(max_len, dim, device=device)
+            self.blocks = HybridSequential(prefix="")
+            for _ in range(depth):
+                self.blocks.add(Block(dim, heads, device=device))
+            self.ln_f = LayerNorm(device=device)
+            self.head = Dense(vocab, flatten=False, device=device)
 
     def forward(self, idx, pos_idx):
         x = self.tok(idx) + self.pos(pos_idx)
@@ -132,9 +140,8 @@ def main(argv=None):
     net = TransformerLM(args.vocab, dim=args.dim, heads=args.heads,
                         depth=args.depth,
                         max_len=args.max_len or args.seq_len, device=dev)
-    initializer.initialize(net, initializer.Xavier(),
-                           generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(net.named_parameters(), "adam",
+    net.initialize(initializer.Xavier())
+    trainer = Trainer(net.collect_params(), "adam",
                       {"learning_rate": 3e-3})
     ce = SoftmaxCrossEntropyLoss()
     rng = np.random.RandomState(0)

@@ -56,7 +56,8 @@ import pytest
 import torch
 
 import mxnet_tpu as mx
-from mxnet_tpu_torch import autograd, gluon, initializer, metric
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch import autograd, gluon, metric
 from mxnet_tpu_torch.base import as_dtype, tensor_from_numpy
 from mxnet_tpu_torch.convert import (load_mxnet_params, mxnet_pairs,
                                      mxnet_to_torch_name)
@@ -67,8 +68,8 @@ from mxnet_tpu_torch.models import image_classification as ic
 from mxnet_tpu_torch.models import transformer_lm as tlm
 from mxnet_tpu_torch.ops import cuda_ops
 from test_torch_conv_layers import _bn_pair
-from test_torch_resnet import (LR, MOM, WD, _args, arrays_of, jax_model,
-                               port_model)
+from test_torch_resnet import (LR, MOM, WD, FirstBatches, _args, arrays_of,
+                               jax_model, port_model, synthetic_batches)
 from test_torch_training import (LM_ATOL, LM_RTOL, VOCAB, _adam_gap_bound,
                                  _lm_pair)
 
@@ -115,7 +116,7 @@ def _small_nets():
     tnet = nn.HybridSequential(
         nn.Conv2D(4, 3, in_channels=3, device="cpu"),
         nn.BatchNorm(in_channels=4, device="cpu"), nn.Activation("relu"),
-        nn.Dense(5, 4 * 4 * 4, device="cpu"))
+        nn.Dense(5, in_units=4 * 4 * 4, device="cpu"))
     load = dict(zip(tnet.state_dict(), jnet.collect_params().values()))
     with torch.no_grad():
         for key, t in tnet.state_dict(keep_vars=True).items():
@@ -143,7 +144,8 @@ def test_cast_keeps_the_parameters_and_channel_last_memory():
     net = nn.HybridSequential(
         nn.Conv2D(8, 3, in_channels=4, layout="NHWC", device="cpu"),
         nn.BatchNorm(axis=-1, in_channels=8, device="cpu"))
-    initializer.initialize(net, generator=torch.Generator().manual_seed(0))
+    tmx.random.seed(0)
+    net.initialize(tmx.init.Xavier())
     before = list(net.parameters())
     weight = net[0].weight
     assert weight.shape == (8, 3, 3, 4) and weight.is_contiguous()
@@ -172,8 +174,9 @@ def test_cast_between_building_a_trainer_and_its_first_step_trains():
     adds) each new gradient, and makes its states at the first update,
     in the parameters' new dtype."""
     rng = np.random.RandomState(2)
-    net = nn.HybridSequential(nn.Dense(6, 4, activation="relu", device="cpu"),
-                              nn.Dense(3, 6, device="cpu"))
+    net = nn.HybridSequential(nn.Dense(6, activation="relu", in_units=4,
+                                       device="cpu"),
+                              nn.Dense(3, in_units=6, device="cpu"))
     with torch.no_grad():
         for p in net.parameters():
             p.copy_(torch.from_numpy(rng.normal(0, 0.5, p.shape)
@@ -302,7 +305,7 @@ def _fit_args():
 
 
 def _fit_batches(layout):
-    batches = ic.get_synthetic_iter(_fit_args(), (3, SIZE, SIZE), "cpu")[:2]
+    batches = synthetic_batches(_fit_args(), (3, SIZE, SIZE), 2)
     if layout == "NHWC":
         batches = [(x.permute(0, 2, 3, 1).contiguous(), y)
                    for x, y in batches]
@@ -346,9 +349,10 @@ def jax_bf16_fit(request):
 
 def _port_bf16_fit(layout, arrays, batches, monkeypatch):
     """The port's own ``fit_gluon --dtype bfloat16`` from the carried fp32
-    arrays; after each step its logits, loss, gradients and buffers."""
+    arrays (its ``initialize`` keeps them); after each step its logits,
+    loss, gradients and buffers."""
     tnet = port_model("resnet18_v1", arrays, classes=10, layout=layout)
-    monkeypatch.setattr(initializer, "initialize", lambda net, *a, **k: net)
+    monkeypatch.setattr(tnet, "initialize", lambda *a, **k: None)
     seen, logits, train_step = [], [], ic.train_step
 
     def recording_step(net, trainer, loss_fn, metric_, x, y, batch_size):
@@ -362,7 +366,7 @@ def _port_bf16_fit(layout, arrays, batches, monkeypatch):
 
     hook = tnet.register_forward_hook(lambda m, i, o: logits.append(o))
     monkeypatch.setattr(ic, "train_step", recording_step)
-    assert ic.fit_gluon(_fit_args(), tnet, batches) is tnet
+    assert ic.fit_gluon(_fit_args(), tnet, FirstBatches(batches)) is tnet
     hook.remove()
     return tnet, seen
 
@@ -415,7 +419,8 @@ def test_fit_gluon_bf16_two_steps_match_jax_trainer(jax_bf16_fit,
     # - LR (g_t / B + WD w_{t-1}), w_t = w_{t-1} + mom_t.  A gap d_t in the
     # summed gradient moves mom_t by LR d_t / B and w_t with it
     trainer = seen[-1][4]
-    tindex = {n: i for i, (n, _) in enumerate(tnet.named_parameters())}
+    # the Trainer indexes every parameter, as the JAX one does
+    tindex = {n: i for i, n in enumerate(tnet._collect_params_with_prefix())}
     state = tnet.state_dict()
     w1, final = steps[0][3], steps[1][3]
     for n in trainable:

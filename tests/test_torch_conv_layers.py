@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import mxnet_tpu as mx
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import autograd, metric
 from mxnet_tpu_torch.gluon import nn
 
@@ -81,8 +82,22 @@ def test_conv_with_activation_and_without_in_channels():
     got = tconv(_t(x)).detach().numpy()
     assert np.abs(got - jconv(mx.nd.array(x)).asnumpy()).max() < BOUND
     assert got.min() == 0.0
-    with pytest.raises(ValueError, match="in_channels must be given"):
-        nn.Conv2D(4, 3, device="cpu")
+    # without in_channels the weight waits for the first batch, and the
+    # same seed draws the JAX layer's weight then
+    mx.random.seed(4)
+    tmx.random.seed(4)
+    jdeferred = mx.gluon.nn.Conv2D(4, 3, padding=1)
+    tdeferred = nn.Conv2D(4, 3, padding=1, device="cpu")
+    jdeferred.initialize(mx.init.Xavier())
+    tdeferred.initialize(tmx.init.Xavier())
+    assert tdeferred.collect_params()[tdeferred.prefix + "weight"].shape \
+        == (4, 0, 3, 3)
+    want = jdeferred(mx.nd.array(x)).asnumpy()
+    got = tdeferred(_t(x)).detach().numpy()
+    assert tdeferred.weight.shape == (4, 3, 3, 3)
+    np.testing.assert_array_equal(tdeferred.weight.detach().numpy(),
+                                  jdeferred.weight.data().asnumpy())
+    assert np.abs(got - want).max() < BOUND
 
 
 def test_channels_last_scope_sets_layout_and_batchnorm_axis():

@@ -88,7 +88,10 @@ import mxnet_tpu_torch
 from mxnet_tpu_torch import initializer, serving
 from mxnet_tpu_torch.models import TransformerLM
 net = TransformerLM(16, dim=32, heads=2, depth=1, max_len=16, device="cpu")
-initializer.initialize(net, generator=torch.Generator().manual_seed(0))
+mxnet_tpu_torch.random.seed(0)
+net.initialize(initializer.Xavier())
+zeros = torch.zeros((1, 8), dtype=torch.int32)
+net(zeros, zeros)
 server = serving.ModelServer()
 server.load_model("lm", net, input_shapes=[((8,), (8,))],
                   dtype=("int32", "int32"), max_batch=2, device="cpu")

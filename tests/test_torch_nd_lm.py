@@ -29,7 +29,7 @@ from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.models import transformer_lm as tlm
 from mxnet_tpu_torch.models import transformer_lm_nd as lm_nd
 
-from test_torch_training import (LM_ATOL, LM_GRAD_ATOL,
+from test_torch_training import (LM_ATOL, LM_GRAD_ATOL, initialized_lm,
                                  LM_LOSS_BOUND, LM_RTOL, _adam_gap_bound)
 
 VOCAB, DIM, HEADS, DEPTH, B, T = 64, 64, 4, 2, 2, 32
@@ -41,7 +41,8 @@ def _weights(seed=7):
     """Xavier-uniform weights (zero biases, unit LayerNorm gains) drawn from
     a seeded RandomState, under the port's parameter names."""
     rng = np.random.RandomState(seed)
-    net = tlm.TransformerLM(VOCAB, DIM, HEADS, DEPTH, T, device="cpu")
+    net = initialized_lm(tlm.TransformerLM(VOCAB, DIM, HEADS, DEPTH, T,
+                                           device="cpu"))
     out = {}
     for n, p in net.named_parameters():
         if n.endswith("gamma"):
@@ -98,7 +99,8 @@ def test_nd_lm_steps_match_jax():
 
 
 def _lm(seed=3):
-    net = tlm.TransformerLM(VOCAB, DIM, HEADS, DEPTH, T, device="cpu")
+    net = initialized_lm(tlm.TransformerLM(VOCAB, DIM, HEADS, DEPTH, T,
+                                           device="cpu"))
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in net.parameters():
@@ -169,6 +171,9 @@ def test_resnet18_takes_ndarrays_as_it_takes_tensors():
     def net():
         torch.manual_seed(0)
         model = vision.resnet18_v1(classes=10, thumbnail=True, device="cpu")
+        model.initialize()
+        with torch.no_grad():
+            model(torch.zeros(1, 3, 16, 16))   # fills the deferred shapes
         for p in model.parameters():
             torch.nn.init.normal_(p, 0.0, 0.1)
         return model

@@ -1,24 +1,34 @@
 """mxnet_tpu_torch's ResNet model zoo, weight converter and ``fit_gluon``
 loop against the JAX package's.
 
-The JAX model is built with a fixed ``mx.random.seed`` and Xavier, its
-BatchNorm arrays replaced by seeded random values, and its arrays carried
-into the port with ``convert.load_mxnet_params``.
+For the forward and converter tests the JAX model is built with a fixed
+``mx.random.seed`` and Xavier, its BatchNorm arrays replaced by seeded
+random values, and its arrays carried into the port with
+``convert.load_mxnet_params``.  The ``fit_gluon`` parity runs both
+packages' loops from the same ``mx.random.seed``: the same weights and
+the same shuffled batches, drawn by each package itself.
 
 - Forward, outside ``record()`` (running statistics): rtol/atol 1e-4, the
   bound tests/test_gluon.py pins for one model across layouts.
 - ``fit_gluon``, two SGD steps of ``resnet50_v1`` at the example's defaults
   (lr 0.1, momentum 0.9, wd 1e-4) on 2 x 3 x 64 x 64 batches of the
-  example's synthetic set, against the JAX ``gluon.Trainer`` loop on the
-  same batches.  ResNet-50 v1's training step is ill-conditioned in fp32
-  at this size: its last stage normalizes 8 values a channel (2 x 2 x 2),
-  and each package's step-1 gradient lies up to 3% of a leaf's norm from an
-  fp64 run of the port (``test_resnet50_fp32_gradients_are_as_accurate_
-  as_jax``; FP64_REL = 0.05 over the worst measured, 0.030; ResNet-18's
+  example's synthetic set, against the JAX ``gluon.Trainer`` loop run as
+  ``common.py``'s ``fit_gluon`` runs it.  ResNet-50 v1's training step is
+  ill-conditioned in fp32 at this size: its last stage normalizes 8 values
+  a channel (2 x 2 x 2), and each package's step-1 gradient lies up to 4%
+  of a leaf's norm from an fp64 run of the port (``test_resnet50_fp32_
+  gradients_are_as_accurate_as_jax``; FP64_REL = 0.05 over the worst
+  measured: the JAX package 0.041 from seed 0's weights, 0.030 from the
+  carried ones with random BatchNorm arrays; ResNet-18's
   lies within 1e-5).  So the step-1
   gradients are held per leaf at GRAD_REL = 2 x FP64_REL of the leaf's
   norm, plus GRAD_ABS for the conv biases that feed a BatchNorm, whose
-  exact gradient is 0.  SGD is linear in the gradient: the weights and
+  exact gradient is 0.  Step 1's loss: the port's within LOSS_BOUND of an
+  fp64 run of the port, and within JAX_LOSS_BOUND = 2 x LOSS_BOUND of the
+  JAX package's.  Seed 0's logits reach 9, and each fp32 loss lies about
+  LOSS_BOUND from fp64 (measured: the port's 8.05e-5, the JAX package's
+  1.28e-4), so two of them may lie twice that apart (measured: 1.07e-4).
+  SGD is linear in the gradient: the weights and
   momenta after two steps are held at what the update makes of the
   measured per-element gradient gaps, plus fp32 rounding.  The running
   statistics after the second step come from weights the first step put
@@ -40,8 +50,9 @@ import pytest
 import torch
 
 import mxnet_tpu as mx
+import mxnet_tpu_torch as tmx
 from mxnet_tpu.gluon.model_zoo import vision as jvision
-from mxnet_tpu_torch import MXNetError, autograd, gluon, initializer, metric
+from mxnet_tpu_torch import MXNetError, autograd, gluon, io, metric
 from mxnet_tpu_torch.convert import load_mxnet_params, mxnet_pairs
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.gluon.model_zoo import vision
@@ -50,6 +61,7 @@ from mxnet_tpu_torch.models import image_classification as ic
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FWD_RTOL = FWD_ATOL = 1e-4          # tests/test_gluon.py:329
 LOSS_BOUND = 1e-4
+JAX_LOSS_BOUND = 2 * LOSS_BOUND   # measured 1.07e-4 at FIT_SEED
 FP64_REL = 0.05     # worst leaf measured: JAX 0.030, port 0.024-0.028
 GRAD_REL, GRAD_ABS = 2 * FP64_REL, 1e-3
 TRAIN_FWD_BOUND = 1e-3
@@ -83,16 +95,16 @@ def jax_model(name, size, seed=0, training=False, forward=True, **kw):
     Its deferred initialization runs a forward of a batch of two (in
     training mode with ``training``), the batch and mode of the forwards
     that the tests then take, whose operations it compiles.  Without
-    ``forward`` the deferred shapes are set from the port's model instead,
-    array by array (the two list them in one order), and nothing is
-    compiled for a forward the test does not take."""
+    ``forward`` the deferred shapes are set from the port's model instead
+    (its own first call fills them; the two list their arrays in one
+    order), and nothing is compiled for a forward the test does not
+    take."""
     mx.random.seed(seed)
     net = jvision.get_model(name, **kw)
     if not forward:
-        shapes = [t.shape for t in vision.get_model(
-            name, device="cpu", **kw).state_dict().values()]
-        for p, shape in zip(net.collect_params().values(), shapes):
-            p.shape = tuple(shape)
+        for p, shape in zip(net.collect_params().values(),
+                            port_shapes(name, **kw)):
+            p.shape = shape
     net.initialize(mx.init.Xavier())
     shape = (2, size, size, 3) if kw.get("layout") == "NHWC" \
         else (2, 3, size, size)
@@ -126,6 +138,19 @@ def shared_jax_model(name, size, classes=1000, layout="NCHW",
 def _release_shared_jax_models():
     yield
     _shared_jax_model.cache_clear()
+
+
+def port_shapes(name, **kw):
+    """The shapes of the port model's arrays, in order, once its first call
+    has filled the deferred ones."""
+    net = vision.get_model(name, device="cpu", **kw)
+    net.initialize(tmx.init.Zero())
+    size = 16 if kw.get("thumbnail") else 32
+    shape = (1, size, size, 3) if kw.get("layout") == "NHWC" \
+        else (1, 3, size, size)
+    with torch.no_grad():
+        net(torch.zeros(shape))
+    return [p.shape for p in net.collect_params().values()]
 
 
 def arrays_of(net):
@@ -162,10 +187,9 @@ def test_nhwc_matches_nchw_in_the_port():
     cf = port_model("resnet50_v1",
                     arrays_of(shared_jax_model("resnet50_v1", 32)))
     cl = vision.resnet50_v1(layout="NHWC", device="cpu")
-    with torch.no_grad():
-        for (name, a), b in zip(cf.state_dict().items(),
-                                cl.state_dict().values()):
-            b.copy_(a.permute(0, 2, 3, 1) if a.dim() == 4 else a)
+    # the same structural names; loading fills cl's deferred shapes
+    cl.load_state_dict({name: a.permute(0, 2, 3, 1) if a.dim() == 4 else a
+                        for name, a in cf.state_dict().items()})
     rng = np.random.RandomState(3)
     for size, training, bound in ((32, False, FWD_ATOL),
                                   (64, True, TRAIN_FWD_BOUND)):
@@ -213,21 +237,28 @@ def test_converter_raises_on_missing_extra_or_misshaped_arrays():
     missing = dict(arrays)
     del missing[next(n for n in arrays
                      if n.endswith("stage2_batchnorm1_running_mean"))]
-    with pytest.raises(MXNetError, match="stage2_batchnorm1_running_var"
-                                         ".*does not pair"):
+    with pytest.raises(MXNetError, match=r"missing arrays \['stage2_"
+                                         r"batchnorm1_running_mean'\]"):
         load_mxnet_params(tnet, missing)
     last = dict(arrays)
     del last[next(n for n in reversed(list(arrays)))]
-    with pytest.raises(MXNetError, match=r"missing arrays for \['output"):
+    with pytest.raises(MXNetError, match=r"missing arrays \['dense0_bias'\]"):
         load_mxnet_params(tnet, last)
     extra = dict(arrays, resnetv10_dense1_weight=np.zeros((4, 4)))
-    with pytest.raises(MXNetError, match="extra arrays.*dense1_weight"):
+    with pytest.raises(MXNetError, match="extra array "
+                                         "'resnetv10_dense1_weight'"):
         load_mxnet_params(tnet, extra)
     misshaped = dict(arrays)
     conv = next(n for n in arrays if n.endswith("stage3_conv2d0_weight"))
     misshaped[conv] = misshaped[conv][:, :, :2]
     with pytest.raises(MXNetError, match="stage3_conv2d0_weight.*shape"):
         load_mxnet_params(tnet, misshaped)
+    # names that cannot agree (another model's prefix): paired by position
+    renamed = {"other_" + n.split("_", 1)[1]: a for n, a in arrays.items()}
+    state = load_mxnet_params(vision.resnet18_v1(device="cpu"),
+                              renamed).state_dict()
+    for a, (key, b) in zip(arrays.values(), state.items()):
+        assert np.array_equal(a, b.numpy()), key
     # channel-first arrays into a channel-last model
     with pytest.raises(MXNetError, match="conv2d0_weight.*does not pair"):
         load_mxnet_params(vision.resnet18_v1(layout="NHWC", device="cpu"),
@@ -271,8 +302,11 @@ def test_constructors_need_cuda_or_explicit_cpu(monkeypatch):
 def test_xavier_draws_channel_last_weights_in_canonical_order():
     cf = vision.resnet18_v1(device="cpu")
     cl = vision.resnet18_v1(layout="NHWC", device="cpu")
-    for net in (cf, cl):
-        initializer.initialize(net, generator=torch.Generator().manual_seed(3))
+    for net, shape in ((cf, (1, 3, 16, 16)), (cl, (1, 16, 16, 3))):
+        tmx.random.seed(3)
+        net.initialize(tmx.init.Xavier())
+        with torch.no_grad():
+            net(torch.zeros(shape))   # draws the deferred weights
     for (name, a), b in zip(cf.state_dict().items(),
                             cl.state_dict().values()):
         assert torch.equal(a.permute(0, 2, 3, 1) if a.dim() == 4 else a,
@@ -293,17 +327,63 @@ def _args(**kw):
 
 
 def test_synthetic_set_is_the_examples():
+    """The example's arrays, shuffled by each package's ``NDArrayIter``
+    from the same seed: the same batches in the same order, padded from
+    the start at the end of each epoch, and reshuffled by ``reset``."""
     args = _args(batch_size=12, num_classes=10)
-    batches = ic.get_synthetic_iter(args, (3, 8, 8), "cpu")
-    it = _example_common().get_synthetic_iter(args, (3, 8, 8))
-    X, Y = it.data[0][1], it.label[0][1]
-    assert len(batches) == 27 and X.shape == (320, 3, 8, 8)
-    assert all(x.shape == (12, 3, 8, 8) for x, _ in batches)
-    got = torch.cat([x for x, _ in batches])
-    assert np.array_equal(got[:320].numpy(), X)
-    assert np.array_equal(got[320:].numpy(), X[:4])   # padded from the start
-    assert np.array_equal(torch.cat([y for _, y in batches])[:320].numpy(),
-                          Y)
+    mx.random.seed(5)
+    tmx.random.seed(5)
+    jit = _example_common().get_synthetic_iter(args, (3, 8, 8))
+    tit = ic.get_synthetic_iter(args, (3, 8, 8), "cpu")
+    assert isinstance(tit, io.NDArrayIter)
+    assert tit.provide_data[0].shape == (12, 3, 8, 8)
+    for epoch in range(2):
+        jb, tb = list(jit), list(tit)
+        assert len(tb) == len(jb) == 27
+        for j, t in zip(jb, tb):
+            assert t.pad == j.pad
+            assert np.array_equal(t.data[0].asnumpy(), j.data[0].asnumpy())
+            assert np.array_equal(t.label[0].asnumpy(),
+                                  j.label[0].asnumpy())
+        assert tb[-1].pad == 4
+        jit.reset()
+        tit.reset()
+
+
+def synthetic_batches(args, image_shape, n):
+    """The first ``n`` batches of the example's synthetic set, in the
+    order it was drawn, as (data, label) tensors."""
+    it = ic.get_synthetic_iter(args, image_shape, "cpu")
+    (_, X), (_, Y) = it.data[0], it.label[0]
+    B = args.batch_size
+    return [(X[i * B:(i + 1) * B], Y[i * B:(i + 1) * B]) for i in range(n)]
+
+
+class FirstBatches(io.DataIter):
+    """``fit_gluon``'s iterator over fewer batches than an epoch: the
+    first ``n`` batches of ``source`` (an ``io.DataIter``, reset with it)
+    or the (data, label) tensors given."""
+
+    def __init__(self, source, n=None):
+        super().__init__()
+        if isinstance(source, list):
+            n = len(source)
+            source = [io.DataBatch([tmx.nd.NDArray(x)], [tmx.nd.NDArray(y)])
+                      for x, y in source]
+        self._source, self._n, self._i = source, n, 0
+
+    def next(self):
+        if self._i == self._n:
+            raise StopIteration
+        self._i += 1
+        if isinstance(self._source, list):
+            return self._source[self._i - 1]
+        return self._source.next()
+
+    def reset(self):
+        self._i = 0
+        if not isinstance(self._source, list):
+            self._source.reset()
 
 
 def _jax_step(net, x, y, trainer=None):
@@ -318,63 +398,97 @@ def _jax_step(net, x, y, trainer=None):
     return loss.asnumpy()
 
 
+FIT_SEED = 0
+
+
 @pytest.fixture(scope="module")
 def jax_fit():
-    """The JAX Trainer loop's two SGD steps of resnet50_v1 on the first
-    two B = 2, 64 x 64 batches of the synthetic set, recorded once for the
-    tests that hold the port to them: the starting arrays, and after each
-    step its loss, the gradients and every array; the momenta at the
-    end."""
-    jnet = jax_model("resnet50_v1", 64, training=True)
-    arrays = arrays_of(jnet)
-    batches = ic.get_synthetic_iter(_args(), (3, 64, 64), "cpu")[:2]
+    """The JAX loop as ``common.py``'s ``fit_gluon`` runs it, from
+    ``mx.random.seed(FIT_SEED)``: the example's shuffled synthetic set (B =
+    2, 64 x 64), Xavier, one batch to fill the deferred shapes, ``reset``,
+    then two SGD steps at the example's defaults through the Gluon
+    Trainer; recorded once for the tests that hold the port to it, keyed by
+    structural name: the starting arrays, the batches, and after each step
+    its loss, the gradients and every array; the momenta at the end."""
+    mx.random.seed(FIT_SEED)
+    it = _example_common().get_synthetic_iter(_args(), (3, 64, 64))
+    jnet = jvision.get_model("resnet50_v1")
+    jnet.initialize(mx.init.Xavier())
+    jnet(it.next().data[0])
+    it.reset()
+    names = {p.name: key
+             for key, p in jnet._collect_params_with_prefix().items()}
+
+    def arrays():
+        return {names[n]: a for n, a in arrays_of(jnet).items()}
+
+    start = arrays()
     jtrainer = mx.gluon.Trainer(jnet.collect_params(), "sgd",
                                 {"learning_rate": LR, "momentum": MOM,
                                  "wd": WD})
     jparams = jnet.collect_params()
-    trainable = [n for n, p in jparams.items() if p.grad_req != "null"]
-    steps = []
-    for x, y in batches:
+    trainable = [names[n] for n, p in jparams.items()
+                 if p.grad_req != "null"]
+    steps, batches = [], []
+    for _ in range(2):
+        batch = it.next()
+        x, y = (torch.from_numpy(np.array(a[0].asnumpy()))
+                for a in (batch.data, batch.label))
+        batches.append((x, y))
         loss = _jax_step(jnet, x, y, jtrainer)
-        steps.append((loss, {n: jparams[n].grad().asnumpy()
-                             for n in trainable}, arrays_of(jnet)))
+        steps.append((loss, {names[n]: p.grad().asnumpy()
+                             for n, p in jparams.items()
+                             if names[n] in trainable}, arrays()))
     states = jtrainer._updaters[0].states
-    momenta = {n: states[i].asnumpy() for i, n in enumerate(jparams)
-               if n in trainable}
-    return arrays, batches, trainable, steps, momenta
+    momenta = {names[n]: states[i].asnumpy()
+               for i, n in enumerate(jparams) if names[n] in trainable}
+    return start, batches, trainable, steps, momenta
 
 
 def test_fit_gluon_two_steps_match_jax_trainer(monkeypatch, jax_fit):
-    arrays, batches, trainable, steps, jmomenta = jax_fit
-    tnet = port_model("resnet50_v1", arrays)
-    pairs = mxnet_pairs(tnet, arrays)
-    # the port runs its own fit_gluon from the carried weights; each step is
-    # recorded as it ends
-    monkeypatch.setattr(initializer, "initialize", lambda net, *a, **k: net)
+    """The port's ``fit_gluon`` from the same seed draws the JAX loop's
+    weights and batches itself (bit for bit), and its two steps match."""
+    start, batches, trainable, steps, jmomenta = jax_fit
     seen, train_step = [], ic.train_step
 
     def recording_step(net, trainer, loss_fn, metric_, x, y, batch_size):
+        if not seen:
+            state = net.state_dict()
+            for n, a in start.items():
+                assert np.array_equal(state[n].numpy(), a), n
+        assert torch.equal(x, batches[len(seen)][0])
+        assert torch.equal(y, batches[len(seen)][1])
         loss = train_step(net, trainer, loss_fn, metric_, x, y, batch_size)
         seen.append((loss.detach().numpy(), trainer, {
             n: p.grad.clone() for n, p in net.named_parameters()
-            if p.requires_grad}, {
-            n: p.detach().clone() for n, p in net.named_parameters()}))
+            if p.requires_grad}))
         return loss
 
     monkeypatch.setattr(ic, "train_step", recording_step)
-    assert ic.fit_gluon(_args(), tnet, batches) is tnet
+    tmx.random.seed(FIT_SEED)
+    train_iter = FirstBatches(
+        ic.get_synthetic_iter(_args(), (3, 64, 64), "cpu"), 2)
+    tnet = vision.resnet50_v1(device="cpu")
+    assert ic.fit_gluon(_args(), tnet, train_iter) is tnet
     assert len(seen) == 2
     grad_gaps, jax_weights = [], []
+    # step 1's loss: the port's within LOSS_BOUND of an fp64 run's, and
+    # within JAX_LOSS_BOUND of the JAX package's
+    loss64 = _fp64_loss(start, batches[0])
     for step, (jloss, jgrads, jarrays) in enumerate(steps):
-        tloss, _, tgrads, _ = seen[step]
+        tloss, _, tgrads = seen[step]
         if step == 0:
-            assert np.abs(tloss - jloss).max() < LOSS_BOUND
+            print("step-1 loss gaps: port-fp64 %.3g, JAX-fp64 %.3g, "
+                  "port-JAX %.3g" % tuple(np.abs(a - b).max() for a, b in (
+                      (tloss, loss64), (jloss, loss64), (tloss, jloss))))
+            assert np.abs(tloss - loss64).max() < LOSS_BOUND
+            assert np.abs(tloss - jloss).max() < JAX_LOSS_BOUND
         else:
             assert np.all(np.isfinite(tloss))
         gaps = {}
         for n in trainable:
             want = jgrads[n]
-            got = tgrads[pairs[n]].numpy()
+            got = tgrads[n].numpy()
             gaps[n] = np.abs(got.astype(np.float64) - want)
             if step == 0:
                 gap = np.linalg.norm(got - want)
@@ -387,7 +501,8 @@ def test_fit_gluon_two_steps_match_jax_trainer(monkeypatch, jax_fit):
     # w_t = w_{t-1} + mom_t.  A gap d_t in the summed gradient moves mom_t
     # by LR d_t / B and w_t with it, carried forward by MOM
     trainer = seen[-1][1]
-    tindex = {n: i for i, (n, _) in enumerate(tnet.named_parameters())}
+    # the Trainer indexes every parameter, as the JAX one does
+    tindex = {n: i for i, n in enumerate(tnet._collect_params_with_prefix())}
     state = tnet.state_dict()
     final = steps[-1][2]
     for n in trainable:
@@ -396,30 +511,44 @@ def test_fit_gluon_two_steps_match_jax_trainer(monkeypatch, jax_fit):
         mom_bound = LR * (MOM * d1 + d2) + LR * WD * LR * d1
         w_bound = LR * d1 + mom_bound
         want_w = final[n]
-        got_w = state[pairs[n]].numpy()
+        got_w = state[n].numpy()
         assert np.all(np.abs(got_w - want_w)
                       <= w_bound + W_RTOL * np.abs(want_w) + W_ATOL), n
         want_m = jmomenta[n]
-        got_m = trainer._updater.states[tindex[pairs[n]]].numpy()
+        got_m = trainer._updater.states[tindex[n]].numpy()
         assert np.all(np.abs(got_m - want_m)
                       <= mom_bound + W_RTOL * np.abs(w1) + W_ATOL), n
     for n, want in final.items():
         if n.endswith(("running_mean", "running_var")):
-            got = state[pairs[n]].numpy()
+            got = state[n].numpy()
             assert np.all(np.isfinite(got))
             assert np.abs(got - want).max() <= 0.25 * np.abs(want).max(), n
+
+
+def _fp64_loss(arrays, batch):
+    """The per-sample loss of the port's resnet50_v1 in fp64 from
+    ``arrays`` (structural names) on ``batch``, in training mode."""
+    net = vision.resnet50_v1(device="cpu")
+    net.load_state_dict({n: torch.from_numpy(a) for n, a in arrays.items()})
+    x, y = batch
+    with torch.no_grad(), autograd.train_mode():
+        loss = SoftmaxCrossEntropyLoss()(net.double()(x.double()),
+                                         y.double())
+    return loss.numpy()
 
 
 def test_resnet50_fp32_gradients_are_as_accurate_as_jax(jax_fit):
     """Why GRAD_REL: against an fp64 run of the port, both packages' fp32
     step-1 gradients lie within FP64_REL of it, leaf by leaf, and the
     port's median leaf is no farther than twice the JAX package's."""
-    arrays, batches, _, steps, _ = jax_fit
-    tnet = port_model("resnet50_v1", arrays)
-    pairs = mxnet_pairs(tnet, arrays)
+    start, batches, _, steps, _ = jax_fit
+    tnet = vision.resnet50_v1(device="cpu")
+    tnet.load_state_dict({n: torch.from_numpy(a) for n, a in start.items()})
     jgrads = steps[0][1]
     x, y = batches[0]
-    t64 = port_model("resnet50_v1", arrays).double()
+    t64 = vision.resnet50_v1(device="cpu")
+    t64.load_state_dict(tnet.state_dict())
+    t64.double()
 
     def port_grads(net, dtype):
         with autograd.record():
@@ -431,12 +560,12 @@ def test_resnet50_fp32_gradients_are_as_accurate_as_jax(jax_fit):
     g32, g64 = port_grads(tnet, torch.float32), port_grads(t64, torch.float64)
     port_rel, jax_rel = {}, {}
     for n, jgrad in jgrads.items():
-        if n.endswith("bias") and "dense" not in n:
+        if n.endswith("bias") and not n.startswith("output"):
             continue
-        truth = g64[pairs[n]]
+        truth = g64[n]
         scale = truth.norm().item()
         jax_rel[n] = np.linalg.norm(jgrad - truth.numpy()) / scale
-        port_rel[n] = (g32[pairs[n]] - truth).norm().item() / scale
+        port_rel[n] = (g32[n] - truth).norm().item() / scale
     print("worst leaf: port %.3g (%s), JAX %.3g (%s); median: port %.3g, "
           "JAX %.3g" % (
               max(port_rel.values()), max(port_rel, key=port_rel.get),
@@ -451,12 +580,14 @@ def test_resnet50_fp32_gradients_are_as_accurate_as_jax(jax_fit):
 
 def test_train_step_accumulates_accuracy_and_moves_running_stats():
     net = vision.resnet18_v1(classes=10, device="cpu")
-    initializer.initialize(net, generator=torch.Generator().manual_seed(0))
-    trainer = gluon.Trainer(net.named_parameters(), "sgd",
+    net.initialize(tmx.init.Xavier())
+    batch = ic.get_synthetic_iter(_args(batch_size=4, num_classes=10),
+                                  (3, 16, 16), "cpu").next()
+    x, y = batch.data[0]._data, batch.label[0]._data
+    net(x)   # fills the deferred shapes
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
                             {"learning_rate": LR, "momentum": MOM, "wd": WD})
     acc = metric.Accuracy()
-    x, y = ic.get_synthetic_iter(_args(batch_size=4, num_classes=10),
-                                 (3, 16, 16), "cpu")[0]
     before = net.features[1].running_mean.clone()
     loss = ic.train_step(net, trainer, SoftmaxCrossEntropyLoss(), acc, x, y,
                          4)

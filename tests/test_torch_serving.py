@@ -19,13 +19,14 @@ import torch
 
 import mxnet_tpu as mx
 from mxnet_tpu import serving as jax_serving
-from mxnet_tpu_torch import MXNetError, initializer, serving
+from mxnet_tpu_torch import MXNetError, serving
 from mxnet_tpu_torch.convert import load_mxnet_params
 from mxnet_tpu_torch.models import TransformerLM
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "example", "gluon"))
 from transformer_lm import TransformerLM as JaxLM  # noqa: E402
+from test_torch_training import initialized_lm  # noqa: E402
 
 VOCAB, DIM, HEADS, DEPTH, MAX_LEN = 16, 64, 4, 2, 64
 T = 8
@@ -35,8 +36,7 @@ LM_DTYPES = ("int32", "int32")
 def _make_net(seed=0):
     net = TransformerLM(VOCAB, dim=DIM, heads=HEADS, depth=DEPTH,
                         max_len=MAX_LEN, device="cpu")
-    gen = torch.Generator().manual_seed(seed)
-    return initializer.initialize(net, initializer.Xavier(), generator=gen)
+    return initialized_lm(net, seed)
 
 
 def _request(rng, length=T):

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import mxnet_tpu as mx
+import mxnet_tpu_torch as tmx
 from mxnet_tpu.ops.pallas_ops import flash_attention as jax_flash
 from mxnet_tpu_torch import MXNetError, autograd, gluon, lr_scheduler
 from mxnet_tpu_torch import optimizer as topt
@@ -271,6 +272,17 @@ def _lm_pair(seed=7):
     return jnet, tnet
 
 
+def initialized_lm(net, seed=0):
+    """The port's LM ``net`` Xavier-initialized from ``tmx.random.seed(seed)``,
+    its deferred shapes filled by one call."""
+    tmx.random.seed(seed)
+    net.initialize(tmx.init.Xavier())
+    zeros = torch.zeros((1, 4), dtype=torch.int32)
+    with torch.no_grad():
+        net(zeros, zeros)
+    return net
+
+
 def _adam_gap_bound(grads, gaps, lr, beta1=0.9, beta2=0.999, eps=1e-8):
     """Per element, how far apart MXNet's Adam may leave two copies of the
     same weights when their gradients at step t are ``grads[t]`` and lie at
@@ -367,8 +379,8 @@ def _dense_pair(rng):
              mx.gluon.nn.Dense(3, in_units=8))
     jnet.initialize(mx.init.Xavier())
     tnet = gluon.nn.HybridSequential(
-        gluon.nn.Dense(8, 5, activation="relu", device="cpu"),
-        gluon.nn.Dense(3, 8, device="cpu"))
+        gluon.nn.Dense(8, activation="relu", in_units=5, device="cpu"),
+        gluon.nn.Dense(3, in_units=8, device="cpu"))
     with torch.no_grad():
         for jp, tp in zip(jnet.collect_params().values(),
                           tnet.parameters()):

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import mxnet_tpu as mx
-from mxnet_tpu_torch import MXNetError, initializer
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.convert import load_mxnet_params, mxnet_to_torch_name
 from mxnet_tpu_torch.models import TransformerLM as TorchLM
 
@@ -113,8 +114,12 @@ def test_seeded_xavier_init_is_reproducible_and_bounded():
     def build(seed):
         net = TorchLM(VOCAB, dim=DIM, heads=HEADS, depth=DEPTH,
                       max_len=MAX_LEN, device="cpu")
-        gen = torch.Generator().manual_seed(seed)
-        return initializer.initialize(net, initializer.Xavier(), generator=gen)
+        tmx.random.seed(seed)
+        net.initialize(tmx.init.Xavier())
+        zeros = torch.zeros((1, 4), dtype=torch.int32)
+        with torch.no_grad():
+            net(zeros, zeros)   # draws the deferred weights
+        return net
 
     a, b, c = build(0), build(0), build(1)
     for (name, pa), pb, pc in zip(a.named_parameters(), b.parameters(),
