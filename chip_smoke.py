@@ -30,6 +30,19 @@ with momentum 0.9 and lr 0.05) runs through ``functional_call`` and
 ``torch.autograd`` in both layouts (``functional_step``), held against the
 Gluon path on the card (``functional_vs_gluon``) and against the CPU in
 fp32 (``functional_vs_cpu``).  The ResNet fits run seeded and shuffled.
+Then MXNet's compiled half, where a ``CachedOp`` captures a forward into a
+CUDA graph per input signature and replays it: the serving registry is
+CachedOp-backed (``hybrid_serve``: one capture a signature at warmup, none
+under traffic, logits bit-equal to the eager block's), the LM and
+ResNet-50 train hybridized with losses and weights bit-equal to eager
+(``hybrid_lm_train``, ``hybrid_resnet_train``, ``hybrid_resnet_bf16_train``),
+``CompiledTrainStep`` captures ResNet-50's whole bf16 step, update and
+device-side accuracy included, one window of batches a graph
+(``compiled_step``), and ``models/train_mnist.py``'s LeNet trains through
+``mx.sym`` and ``Module.fit``, compiled and eager (``module_fit``).  A
+replay calls no kernel wrapper, so a graphed path's launches are its eager
+warm-up runs' (counted by the wrapper) plus its replays times the kernels
+torch.profiler sees in one replay.
 
     python3 chip_smoke.py
 
@@ -41,6 +54,7 @@ that line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -119,6 +133,15 @@ def phase(label, **fields):
 def fail(msg):
     print("FAIL: %s" % msg, flush=True)
     sys.exit(1)
+
+
+# eager results the graphed phases reproduce: phase label -> (losses,
+# median step ms, ..., final state by structural name)
+REFS = {}
+
+
+def median_of(step_ms):
+    return float(np.median(step_ms[1:]))
 
 
 def reset_launches(cuda_ops):
@@ -390,9 +413,24 @@ def serve(cuda_ops, dev, card):
             t.join(timeout=300)
         wall = time.time() - t0
         snap = server.stats()["models"]["lm"]
+        # one padded batch of short requests (rung 4) straight through the
+        # registry's graph, to hold against the eager block below
+        short = [r for r in requests if len(r[0]) == SERVE_LENGTHS[0]][:4]
+        arrays = [np.stack([r[j] for r in short]) for j in range(2)]
+        graphed = model.execute(arrays)[0]
+        cache, caps = model.cache_stats(), model.capture_stats()
+        eager_launches = cuda_ops.flash_attention.launches
+        # a replay calls no wrapper: torch.profiler counts the kernels one
+        # replay of each served length launches
+        per_replay = {}
+        for T in SERVE_LENGTHS:
+            batch = [np.zeros((1, T), np.int32)] * 2
+            per_replay[T] = kernel_count(device_profile(
+                lambda: model.execute(batch))[1])
     finally:
         server.stop()
-    launches = cuda_ops.flash_attention.launches
+    if cuda_ops.flash_attention.launches != eager_launches:
+        fail("serve: a graph replay called the kernel's wrapper")
     if any(t.is_alive() for t in threads):
         fail("client threads did not finish")
     statuses = [r.status for r in results]
@@ -403,10 +441,20 @@ def serve(cuda_ops, dev, card):
         if r.output.shape != (len(tok), VOCAB) or \
                 not np.isfinite(r.output).all():
             fail("bad logits %s for T=%d" % (r.output.shape, len(tok)))
-    batches = warm["signatures"] + snap["batches"]
-    if launches != DEPTH * batches:
-        fail("flash_attention launches %d != %d layers x %d batches"
-             % (launches, DEPTH, batches))
+    batches = warm["signatures"] + snap["batches"] + 1
+    if caps["replays"] != batches:
+        fail("serve: %d graph replays for %d batches" % (caps["replays"],
+                                                         batches))
+    # each signature runs eagerly (its warm-up) before its capture, where
+    # the wrapper counts; then every batch is one replay of a graph that
+    # the profiler saw launch the kernel once a layer
+    if eager_launches != DEPTH * caps["eager_runs"]:
+        fail("serve: %d eager launches, not %d layers x %d warm-up runs"
+             % (eager_launches, DEPTH, caps["eager_runs"]))
+    if set(per_replay.values()) != {DEPTH}:
+        fail("serve: the profiler saw the kernel %s times in one replay "
+             "(by length), not %d" % (per_replay, DEPTH))
+    launches = eager_launches + caps["replays"] * per_replay[SERVE_LENGTHS[0]]
     lat = sorted(r.latency_ms for r in results)
     tokens = sum(len(tok) for tok, _ in requests)
     phase("serve", requests=len(requests), ok=statuses.count(serving.OK),
@@ -415,6 +463,7 @@ def serve(cuda_ops, dev, card):
           p99_ms=float(np.percentile(lat, 99)), tokens=tokens,
           tokens_per_s=tokens / wall, card='"%s"' % card)
 
+    hybrid_serve(net, dev, warm, cache, caps, arrays, graphed, per_replay)
     profile_batch(net, dev)
 
     # the same weights on the CPU, where the plain attention runs
@@ -623,6 +672,9 @@ def train(cuda_ops, dev, card, bf16=False):
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     label, dtype = ("lm_bf16_train", "bfloat16") if bf16 \
         else ("train", "float32")
+    if not bf16:   # what hybrid_lm_train must reproduce bit for bit
+        REFS["train"] = (list(losses), median_of(step_ms), {
+            n: t.detach().clone() for n, t in net.state_dict().items()})
     if not all(np.isfinite(losses)):
         fail("%s losses not finite: %s" % (label, losses))
     if launches != DEPTH * TRAIN_STEPS or by_dtype[dtype] != launches:
@@ -2112,6 +2164,555 @@ def params_io(net, card):
           card='"%s"' % card)
 
 
+# ---------------------------------------------------------------------------
+# the compiled half: CachedOp as CUDA-graph capture, hybridize(), the
+# compiled train step, mx.sym and Module.fit
+
+COMPILED_STEPS, COMPILED_WINDOW = 6, 2
+COMPILED_LR, COMPILED_MOMENTUM = 0.05, 0.9
+MNIST_B, MNIST_EPOCHS = 64, 2
+# a hybridized block against its eager self where the two are not
+# bit-reproducible (cuDNN's default algorithms): the JAX package's bound,
+# tests/test_gluon.py::test_model_zoo_hybridize_consistency
+HYBRID_RTOL, HYBRID_ATOL = 1e-4, 1e-5
+# a LeNet checkpoint's predictions, card against CPU (fp32 sums in another
+# order; the LM's served logits hold 1e-3 at far greater depth)
+MNIST_PREDICT_ATOL = 1e-5
+
+
+def device_profile(fn):
+    """(device ms, {kernel name: launches}) of ``fn()`` under
+    torch.profiler: the kernels and copies on the device timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    kernels = [e for e in prof.key_averages() if e.device_type != cpu]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            {e.key: e.count for e in kernels})
+
+
+def kernel_count(kernels, tag="flash_attention_fwd"):
+    return sum(n for k, n in kernels.items() if tag in k)
+
+
+def state_diff(a, b):
+    """Names of the arrays of two state dicts that are not bit-equal."""
+    return [n for n in a if not torch.equal(a[n], b[n])]
+
+
+def hybrid_serve(net, dev, warm, cache, caps, arrays, graphed, per_replay):
+    """Phase: the serving registry's CachedOp.  The warmup captured one
+    graph a (length, rung) signature, traffic captured none, a padded
+    batch's logits from the graph equal the eager block's bit for bit, and
+    torch.profiler saw one replay of each length launch the kernel once a
+    layer (``per_replay``)."""
+    sigs = len(SERVE_LENGTHS) * len(LADDER)
+    if warm["signatures"] != sigs or warm["compiles"] != sigs:
+        fail("hybrid_serve: warmup %s, not %d captures" % (warm, sigs))
+    if cache["misses"] != warm["cache"]["misses"] or caps["captures"] != sigs:
+        fail("hybrid_serve: traffic captured again: %s, %s" % (cache, caps))
+    with torch.no_grad():
+        eager = net(*(torch.from_numpy(a).to(dev) for a in arrays))
+    eager = eager.cpu().numpy()
+    if not np.array_equal(graphed, eager):
+        fail("hybrid_serve: graphed logits differ from the eager block's: "
+             "max abs %.3g" % float(np.abs(graphed - eager).max()))
+    phase("hybrid_serve", signatures=warm["signatures"],
+          captures=caps["captures"], warmup_compiles=warm["compiles"],
+          misses_after_traffic=cache["misses"] - warm["cache"]["misses"],
+          hits=cache["hits"], replays=caps["replays"],
+          eager_warmup_runs=caps["eager_runs"],
+          profiler_kernel_launches_per_replay=json.dumps(per_replay),
+          bitwise_batch=arrays[0].shape, bitwise=True)
+
+
+def hybrid_lm_train(cuda_ops, dev, card):
+    """Phase: the full-width LM hybridized, trained as ``train`` trains it
+    (the same weights, batches and Adam steps, fp32): one tape node a step
+    whose forward and backward replay captured graphs.  Losses and final
+    weights must equal the eager ``train`` phase's bit for bit.  Launches
+    are the warm-up runs' (counted by the wrapper) and the replays' (the
+    kernels torch.profiler sees in one replayed step, which must be 12,
+    times the replays)."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    want_losses, eager_ms, want = REFS.pop("train")
+    net = new_lm(dev, DEPTH, 0)
+    net.hybridize()
+    trainer = gluon.Trainer(net.named_parameters(), "adam",
+                            {"learning_rate": TRAIN_LR})
+    ce = SoftmaxCrossEntropyLoss()
+    batches = lm_batches(np.random.RandomState(0), TRAIN_STEPS, TRAIN_B,
+                         MAX_LEN, dev)
+    pos = torch.arange(MAX_LEN, device=dev,
+                       dtype=torch.int32).expand(TRAIN_B, MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    reset_launches(cuda_ops)
+    for x, y in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = forward_backward(net, ce, x, y, pos)
+        trainer.step(1)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(loss.item())
+        step_ms.append(start.elapsed_time(end))
+    eager_launches = cuda_ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    caps = net._cached_op.capture_stats()
+    cache = net._cached_op.cache_stats()
+    if caps["captures"] != 1 or cache["misses"] != 1 \
+            or cache["hits"] != TRAIN_STEPS - 1:
+        fail("hybrid_lm_train: not one capture for %d steps: %s %s"
+             % (TRAIN_STEPS, caps, cache))
+    if eager_launches != DEPTH * caps["eager_runs"]:
+        fail("hybrid_lm_train: %d eager launches, not %d layers x %d "
+             "warm-up runs" % (eager_launches, DEPTH, caps["eager_runs"]))
+    if losses != want_losses:
+        fail("hybrid_lm_train: losses %s differ from the eager %s"
+             % (losses, want_losses))
+    got = net.state_dict()
+    differ = state_diff(want, got)
+    if differ:
+        fail("hybrid_lm_train: %d weights differ from the eager run's, "
+             "e.g. %s (max abs %.3g)" % (len(differ), differ[0], float(
+                 (want[differ[0]] - got[differ[0]]).abs().max())))
+    del want
+    x, y = batches[0]
+    device_ms, kernels = device_profile(
+        lambda: forward_backward(net, ce, x, y, pos))
+    seen = kernel_count(kernels)
+    if seen != DEPTH:
+        fail("hybrid_lm_train: the profiler saw the kernel %d times in one "
+             "replayed step, not %d" % (seen, DEPTH))
+    if cuda_ops.flash_attention.launches != eager_launches:
+        fail("hybrid_lm_train: a graph replay called the kernel's wrapper")
+    launches = eager_launches + caps["replays"] * seen
+    phase("hybrid_lm_train", batch=(TRAIN_B, MAX_LEN), steps=TRAIN_STEPS,
+          losses=json.dumps(losses), bitwise_losses=True,
+          bitwise_weights=len(got), captures=caps["captures"],
+          replays=caps["replays"], eager_warmup_runs=caps["eager_runs"],
+          launches=launches, profiler_kernel_launches=seen,
+          step_ms=json.dumps(step_ms), median_step_ms=median_of(step_ms),
+          eager_median_step_ms=eager_ms,
+          step_device_ms=device_ms if device_ms else "not measured",
+          tokens_per_s=TRAIN_B * MAX_LEN / (median_of(step_ms) / 1e3),
+          peak_memory_gb=peak_gb, card='"%s"' % card)
+    return launches
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the scope.  An fp32
+    ResNet-50 or LeNet step with cuDNN's default choice of convolution
+    backward is not bit-reproducible even eagerly (two eager runs of the
+    same steps end apart), so the phases that hold a graphed step to its
+    eager twin bit for bit run both here."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def state_copy(net):
+    return {n: t.detach().clone() for n, t in net.state_dict().items()}
+
+
+def beyond_hybrid_bound(want, got):
+    """Names of the arrays of two state dicts that differ by more than the
+    JAX package's hybridize bound (HYBRID_RTOL, HYBRID_ATOL)."""
+    return [n for n in want if not torch.allclose(
+        got[n].float(), want[n].float(), rtol=HYBRID_RTOL, atol=HYBRID_ATOL)]
+
+
+def hybrid_resnet_run(dev, args, batches, dtype, hybrid):
+    """resnet50_v1 from seed 0, hybridized or not, trained by
+    ``train_step`` on ``batches``: (net, trainer, losses, step ms, peak GB,
+    state after step 1, final state)."""
+    from mxnet_tpu_torch import gluon, metric
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    net = new_resnet(dev, 0).cast(dtype)
+    net.hybridize(hybrid)
+    trainer = gluon.Trainer(
+        net.named_parameters(), args.optimizer,
+        {"learning_rate": args.lr, "momentum": args.mom, "wd": args.wd},
+        kvstore=args.kv_store)
+    ce, acc = SoftmaxCrossEntropyLoss(), metric.Accuracy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms, after_one = [], [], None
+    for x, y in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = ic.train_step(net, trainer, ce, acc, x, y, RESNET_B)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(loss.float().mean().item())
+        step_ms.append(start.elapsed_time(end))
+        if after_one is None:
+            after_one = state_copy(net)
+    return (net, trainer, losses, step_ms,
+            torch.cuda.max_memory_allocated(dev) / 1e9, after_one,
+            state_copy(net))
+
+
+def resnet_step_device_ms(net, trainer, batch):
+    """Device ms of one more ``train_step``-like step, by torch.profiler."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    ce = SoftmaxCrossEntropyLoss()
+    x, y = batch
+
+    def step():
+        with autograd.record():
+            loss = ce(net(x), y)
+        loss.backward(torch.ones_like(loss))
+        trainer.step(RESNET_B)
+
+    return device_profile(step)[0]
+
+
+def hybrid_resnet_train(dev, card, dtype="float32"):
+    """Phase: resnet50_v1 hybridized and trained by ``train_step``, from
+    the weights and batches ``resnet_train`` (or ``resnet_bf16_train``)
+    starts from, NCHW, beside the same eager run (the twin), both with
+    cuDNN's deterministic algorithms: losses, weights and BatchNorm's
+    running statistics must be bit-equal; one capture.  Then the same pair
+    with cuDNN's default algorithms, as ``resnet_train`` and users run it:
+    its convolution backward is not bit-reproducible, so the pair is held
+    to the JAX package's hybridize bound on step 1's loss and on every
+    array after step 1 (the steps after amplify any difference, so the
+    later ones are reported, not held), and a second eager run shows how
+    many arrays eager runs alone leave apart after step 1.  Step ms of
+    each pair and the graphed steps' device time."""
+    label = "hybrid_resnet_train" if dtype == "float32" \
+        else "hybrid_resnet_bf16_train"
+    args = resnet_args(RESNET_B)
+    batches = [(x.to(getattr(torch, dtype)), y) for x, y in
+               synthetic_batches(args, (3, RESNET_SIZE, RESNET_SIZE), dev,
+                                 RESNET_STEPS)]
+    with deterministic_cudnn():
+        want_losses, eager_ms, eager_gb, _, want = hybrid_resnet_run(
+            dev, args, batches, dtype, False)[2:]
+        net, trainer, losses, step_ms, peak_gb, _, got = hybrid_resnet_run(
+            dev, args, batches, dtype, True)
+        caps = net._cached_op.capture_stats()
+        cache = net._cached_op.cache_stats()
+        if caps["captures"] != 1 or cache["misses"] != 1:
+            fail("%s: not one capture: %s %s" % (label, caps, cache))
+        if losses != want_losses:
+            fail("%s: losses %s differ from the eager twin's %s"
+                 % (label, losses, want_losses))
+        differ = state_diff(want, got)
+        if differ:
+            fail("%s: %d of %d arrays differ from the eager twin's, e.g. "
+                 "%s (max abs %.3g)" % (
+                     label, len(differ), len(got), differ[0],
+                     float((want[differ[0]].float()
+                            - got[differ[0]].float()).abs().max())))
+        n_arrays = len(got)
+        del want, got
+        device_ms = resnet_step_device_ms(net, trainer, batches[0])
+        del net, trainer
+    phase(label, layout="NCHW", network="resnet50_v1", dtype=dtype,
+          batch=(RESNET_B, 3, RESNET_SIZE, RESNET_SIZE), steps=len(batches),
+          cudnn_deterministic=True, losses=json.dumps(losses),
+          bitwise_losses=True, bitwise_arrays=n_arrays,
+          captures=caps["captures"], replays=caps["replays"],
+          step_ms=json.dumps(step_ms), median_step_ms=median_of(step_ms),
+          eager_step_ms=json.dumps(eager_ms),
+          eager_median_step_ms=median_of(eager_ms),
+          step_device_ms=device_ms if device_ms else "not measured",
+          imgs_per_s=RESNET_B / (median_of(step_ms) / 1e3),
+          peak_memory_gb=peak_gb, eager_peak_memory_gb=eager_gb,
+          card='"%s"' % card)
+
+    # cuDNN's default algorithms (cudnn.benchmark stays off), and a second
+    # eager run as the control: how far eager runs alone land apart
+    (_, _, want_losses, eager_ms, _, want_one,
+     want) = hybrid_resnet_run(dev, args, batches, dtype, False)
+    control_one = hybrid_resnet_run(dev, args, batches, dtype, False)[5]
+    control_differ = len(state_diff(want_one, control_one))
+    del control_one
+    net, trainer, losses, step_ms, peak_gb, got_one, got = \
+        hybrid_resnet_run(dev, args, batches, dtype, True)
+    cache = net._cached_op.cache_stats()
+    if cache["misses"] != 1:
+        fail("%s_default_cudnn: not one capture: %s" % (label, cache))
+    if not np.allclose(losses[0], want_losses[0], rtol=HYBRID_RTOL,
+                       atol=HYBRID_ATOL):
+        fail("%s_default_cudnn: step-1 loss %r, eager %r" % (
+            label, losses[0], want_losses[0]))
+    beyond = beyond_hybrid_bound(want_one, got_one)
+    if beyond:
+        fail("%s_default_cudnn: %d arrays beyond rtol %g atol %g after step "
+             "1, e.g. %s" % (label, len(beyond), HYBRID_RTOL, HYBRID_ATOL,
+                             beyond[0]))
+    device_ms = resnet_step_device_ms(net, trainer, batches[0])
+    phase(label + "_default_cudnn", layout="NCHW", dtype=dtype,
+          cudnn_deterministic=False, rtol=HYBRID_RTOL, atol=HYBRID_ATOL,
+          op_not_bitwise='"cuDNN convolution backward (default algorithms)"',
+          step1_arrays_beyond_bound=0,
+          step1_arrays_not_bitwise=len(state_diff(want_one, got_one)),
+          eager_control_step1_arrays_not_bitwise=control_differ,
+          final_arrays_not_bitwise=len(state_diff(want, got)),
+          final_arrays=len(got), losses=json.dumps(losses),
+          eager_losses=json.dumps(want_losses),
+          step_ms=json.dumps(step_ms), median_step_ms=median_of(step_ms),
+          eager_step_ms=json.dumps(eager_ms),
+          eager_median_step_ms=median_of(eager_ms),
+          step_device_ms=device_ms if device_ms else "not measured",
+          peak_memory_gb=peak_gb, card='"%s"' % card)
+
+
+def cuda_timed(fn):
+    """Milliseconds of ``fn()`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def compiled_sgd():
+    from mxnet_tpu_torch.optimizer import SGD
+    return SGD(learning_rate=COMPILED_LR, momentum=COMPILED_MOMENTUM,
+               multi_precision=True)
+
+
+def compiled_eager_loop(dev, batches, ce):
+    """``compiled_step``'s eager twin, a ``gluon.Trainer`` loop over the
+    same update kernels: (step ms, accuracy, state after step 1, final
+    state)."""
+    from mxnet_tpu_torch import autograd, gluon, metric
+
+    net = new_resnet(dev, 0).cast("bfloat16")
+    trainer = gluon.Trainer(net.collect_params(), compiled_sgd())
+    acc = metric.Accuracy()
+    step_ms, after_one = [], None
+    for x, y in batches:
+        def eager_step():
+            with autograd.record():
+                out = net(x)
+                loss = ce(out, y).mean()
+            loss.backward()
+            trainer.step(1)
+            acc.update([y], [out])
+        step_ms.append(cuda_timed(eager_step))
+        if after_one is None:
+            after_one = state_copy(net)
+    return step_ms, acc, after_one, state_copy(net)
+
+
+def compiled_run(dev, batches, ce, spc):
+    """``CompiledTrainStep.from_block`` over ``batches`` in windows of
+    ``spc``: (window ms, host fetches in the loop, device accuracy, cache
+    and capture stats, peak GB, state after the first window, final
+    state)."""
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.module import CompiledTrainStep
+
+    net = new_resnet(dev, 0).cast("bfloat16")
+    dacc = metric.Accuracy()
+    cstep = CompiledTrainStep.from_block(
+        net, lambda outs, y: ce(outs[0], y).mean(), compiled_sgd(),
+        eval_metric=dacc, steps_per_call=spc)
+    windows = [batches[i:i + spc] for i in range(0, len(batches), spc)]
+    items = {"n": 0}
+    item = torch.Tensor.item
+
+    def counted(self):
+        items["n"] += 1
+        return item(self)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, after_one = [], None
+    torch.Tensor.item = counted
+    try:
+        for w in windows:
+            ms.append(cuda_timed(lambda: cstep.run_window(w)))
+            if after_one is None:
+                after_one = state_copy(net)
+    finally:
+        torch.Tensor.item = item
+    cstep.sync_metric()
+    return (ms, items["n"], dacc, cstep.cache_stats(), cstep.capture_stats(),
+            torch.cuda.max_memory_allocated(dev) / 1e9, after_one,
+            state_copy(net))
+
+
+def compiled_step(dev, card):
+    """Phase: ``CompiledTrainStep.from_block`` on resnet50_v1 in bf16
+    (NCHW, B = 32, 224 x 224), SGD with momentum 0.9, lr 0.05 and
+    ``multi_precision``, ``Accuracy`` accumulated on the device.  With
+    cuDNN's deterministic algorithms, as ``hybrid_resnet_train``:
+    COMPILED_STEPS steps one a call, then the same steps in windows of
+    COMPILED_WINDOW, each from the same weights and batches as an eager
+    loop over the same update kernels (``gluon.Trainer``).  Parameters,
+    masters' casts and running statistics must equal the eager loop's bit
+    for bit; each window signature is captured once, and the loop fetches
+    nothing to the host (``Tensor.item`` is counted).  Then one a call
+    again beside the eager loop, both with cuDNN's default algorithms:
+    held to the JAX package's hybridize bound after step 1, timed."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    batches = [(x.to(torch.bfloat16), y) for x, y in synthetic_batches(
+        resnet_args(RESNET_B), (3, RESNET_SIZE, RESNET_SIZE), dev,
+        COMPILED_STEPS)]
+    ce = SoftmaxCrossEntropyLoss()
+
+    def check_run(spc, fetches, cache, caps, n_windows, label):
+        if cache["misses"] != 1 or caps["captures"] != 1 \
+                or cache["hits"] != n_windows - 1:
+            fail("%s (steps_per_call=%d): not one capture: %s %s"
+                 % (label, spc, cache, caps))
+        if fetches:
+            fail("%s: %d host fetches inside the loop" % (label, fetches))
+
+    results = {}
+    with deterministic_cudnn():
+        eager_ms, acc, _, want = compiled_eager_loop(dev, batches, ce)
+        for spc in (1, COMPILED_WINDOW):
+            ms, fetches, dacc, cache, caps, gb, _, got = compiled_run(
+                dev, batches, ce, spc)
+            check_run(spc, fetches, cache, caps, len(ms), "compiled_step")
+            differ = state_diff(want, got)
+            if differ:
+                fail("compiled_step (steps_per_call=%d): %d of %d arrays "
+                     "differ from the eager loop's, e.g. %s"
+                     % (spc, len(differ), len(got), differ[0]))
+            if dacc.get() != acc.get():
+                fail("compiled_step: device accuracy %s, eager %s"
+                     % (dacc.get(), acc.get()))
+            results[spc] = (ms, gb, len(got))
+    ms1, gb1, n = results[1]
+    msw, gbw, _ = results[COMPILED_WINDOW]
+    phase("compiled_step", network="resnet50_v1", dtype="bfloat16",
+          layout="NCHW", batch=(RESNET_B, 3, RESNET_SIZE, RESNET_SIZE),
+          optimizer="sgd mom %.1f lr %.2f multi_precision" % (
+              COMPILED_MOMENTUM, COMPILED_LR),
+          steps=COMPILED_STEPS, cudnn_deterministic=True, bitwise_arrays=n,
+          accuracy=acc.get()[1],
+          host_fetches_in_loop=0, eager_step_ms=json.dumps(eager_ms),
+          eager_median_step_ms=median_of(eager_ms),
+          step_ms=json.dumps(ms1), median_step_ms=median_of(ms1),
+          window=COMPILED_WINDOW, window_ms=json.dumps(msw),
+          window_median_step_ms=float(np.median(msw[1:])) / COMPILED_WINDOW,
+          imgs_per_s=RESNET_B / (median_of(ms1) / 1e3),
+          peak_memory_gb=gb1, window_peak_memory_gb=gbw,
+          card='"%s"' % card)
+
+    # cuDNN's default algorithms (cudnn.benchmark stays off)
+    eager_ms, acc, want_one, want = compiled_eager_loop(dev, batches, ce)
+    ms, fetches, dacc, cache, caps, gb, got_one, got = compiled_run(
+        dev, batches, ce, 1)
+    check_run(1, fetches, cache, caps, len(ms), "compiled_step_default_cudnn")
+    beyond = beyond_hybrid_bound(want_one, got_one)
+    if beyond:
+        fail("compiled_step_default_cudnn: %d arrays beyond rtol %g atol %g "
+             "after step 1, e.g. %s" % (len(beyond), HYBRID_RTOL,
+                                        HYBRID_ATOL, beyond[0]))
+    phase("compiled_step_default_cudnn", dtype="bfloat16", layout="NCHW",
+          cudnn_deterministic=False, rtol=HYBRID_RTOL, atol=HYBRID_ATOL,
+          op_not_bitwise='"cuDNN convolution backward (default algorithms)"',
+          step1_arrays_beyond_bound=0,
+          step1_arrays_not_bitwise=len(state_diff(want_one, got_one)),
+          final_arrays_not_bitwise=len(state_diff(want, got)),
+          final_arrays=len(got), accuracy=dacc.get()[1],
+          eager_accuracy=acc.get()[1], host_fetches_in_loop=0,
+          step_ms=json.dumps(ms), median_step_ms=median_of(ms),
+          eager_step_ms=json.dumps(eager_ms),
+          eager_median_step_ms=median_of(eager_ms),
+          imgs_per_s=RESNET_B / (median_of(ms) / 1e3), peak_memory_gb=gb,
+          card='"%s"' % card)
+
+
+@deterministic_cudnn()
+def module_fit(dev, card):
+    """Phase (cuDNN deterministic, as ``hybrid_resnet_train``):
+    ``models/train_mnist.py``'s LeNet through ``Module.fit`` on
+    the card (B = 64, the example's synthetic set, MNIST_EPOCHS epochs),
+    compiled and eager from one seed: parameters bit-equal and ``score``
+    equal; the compiled path ran, one capture.  Then ``save_checkpoint``,
+    ``Module.load`` and ``predict`` on the card, against ``predict`` of the
+    same checkpoint on the CPU."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import train_mnist
+
+    runs = {}
+    for compiled in (True, False):
+        mx.random.seed(0)
+        t0 = time.time()
+        mod = train_mnist.main(["--network", "lenet", "--batch-size",
+                                str(MNIST_B), "--num-epochs",
+                                str(MNIST_EPOCHS), "--compiled",
+                                "1" if compiled else "0"])
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+        if (mod._compiled_step is not None) != compiled:
+            fail("module_fit: compiled=%s took the other path" % compiled)
+        args, auxs = mod.get_params()
+        runs[compiled] = (mod, {k: v._data.clone() for k, v in args.items()},
+                          mod.last_score, fit_s)
+    mod, params, score, fit_s = runs[True]
+    _, eager_params, eager_score, eager_s = runs[False]
+    differ = state_diff(eager_params, params)
+    if differ:
+        fail("module_fit: compiled and eager parameters differ: %s" % differ)
+    if score != eager_score:
+        fail("module_fit: score %s, eager %s" % (score, eager_score))
+    cache = mod._compiled_step.cache_stats()
+    steps = MNIST_EPOCHS * (2048 // MNIST_B)
+    if cache["misses"] != 1 or cache["hits"] != steps - 1:
+        fail("module_fit: not one capture for %d steps: %s" % (steps, cache))
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = tmp + "/lenet"
+        mod.save_checkpoint(prefix, MNIST_EPOCHS)
+        it = train_mnist.get_mnist_iters(MNIST_B, tmp, ctx=dev,
+                                         shuffle=False)[0]
+        card_mod = mx.mod.Module.load(prefix, MNIST_EPOCHS, context=dev)
+        card_mod.bind(data_shapes=it.provide_data,
+                      label_shapes=it.provide_label, for_training=False)
+        on_card = card_mod.predict(it).asnumpy()
+        it = train_mnist.get_mnist_iters(MNIST_B, tmp, ctx="cpu",
+                                         shuffle=False)[0]
+        cpu_mod = mx.mod.Module.load(prefix, MNIST_EPOCHS,
+                                     context=mx.cpu())
+        cpu_mod.bind(data_shapes=it.provide_data,
+                     label_shapes=it.provide_label, for_training=False)
+        on_cpu = cpu_mod.predict(it).asnumpy()
+    err = float(np.abs(on_card - on_cpu).max())
+    if on_card.shape != (2048, 10) or err > MNIST_PREDICT_ATOL:
+        fail("module_fit: predict on the card %s vs the CPU: max abs %.3g"
+             % (on_card.shape, err))
+    phase("module_fit", network="lenet", batch=MNIST_B, epochs=MNIST_EPOCHS,
+          cudnn_deterministic=True,
+          steps=steps, bitwise_params=len(params), score=score[0][1],
+          eager_score=eager_score[0][1], captures=cache["misses"],
+          hits=cache["hits"], compiled_fit_s=fit_s, eager_fit_s=eager_s,
+          predict_vs_cpu_max_abs=err, atol=MNIST_PREDICT_ATOL,
+          card='"%s"' % card)
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -2144,6 +2745,7 @@ def main():
     launches_train, state, train_losses = train(cuda_ops, dev, smi)
     train_profile(*state, smi)
     del state
+    launches_hybrid = hybrid_lm_train(cuda_ops, dev, smi)
     train_vs_cpu(cuda_ops, dev)
     launches_train_bf16, state, _ = train(cuda_ops, dev, smi, bf16=True)
     train_profile(*state, smi, label="lm_bf16_profile")
@@ -2159,8 +2761,10 @@ def main():
     states = resnet_train(dev, smi)
     resnet_profile(*states["NCHW"], smi)
     del states
+    hybrid_resnet_train(dev, smi)
     resnet_vs_cpu(dev)
     functional_step(dev, smi)
+    compiled_step(dev, smi)
     functional_vs_gluon(dev)
     functional_vs_cpu(dev)
     states = resnet_train(dev, smi, "bfloat16")
@@ -2168,6 +2772,7 @@ def main():
         resnet_profile(*state, smi, label="resnet_bf16_profile",
                        layout=layout)
     del states, state
+    hybrid_resnet_train(dev, smi, "bfloat16")
     resnet_bf16_mp(dev, smi)
     resnet_bf16_vs_cpu(dev)
     if cuda_ops.flash_attention.launches:
@@ -2177,14 +2782,20 @@ def main():
     nd_ops(dev)
     launches_nd = nd_lm(cuda_ops, dev, smi, train_losses)
     nd_lm_vs_cpu(cuda_ops, dev)
+    reset_launches(cuda_ops)
+    module_fit(dev, smi)
+    if cuda_ops.flash_attention.launches:
+        fail("module_fit launched flash_attention")
 
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
               "launches": launches_serve + launches_train
-              + launches_train_bf16 + launches_nd + launches_functional,
+              + launches_train_bf16 + launches_nd + launches_functional
+              + launches_hybrid,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
+              "launches_hybrid_train": launches_hybrid,
               "launches_train_bf16": launches_train_bf16,
               "launches_nd": launches_nd,
               "launches_functional": launches_functional}

@@ -19,10 +19,17 @@ contexts usable as ``with mx.cpu():`` scopes; and Gluon's parameter model:
 names, deferred shapes, ``initialize`` drawing from ``random`` (the JAX
 package's keys, so ``mx.random.seed(n)`` gives its weights),
 ``io.NDArrayIter``, ``.params`` files (``nd.save``/``nd.load``,
-``save_parameters``) and ``gluon.block.functional_call``.
+``save_parameters``) and ``gluon.block.functional_call``; and the
+compiled half: ``CachedOp`` (a forward captured as a CUDA graph per input
+signature), ``HybridBlock.hybridize()``, the compiled train step, ``sym``,
+the executor, ``mod.Module`` and ``callback``.
 """
-from . import autograd, initializer, io, metric, ndarray, random
+from . import autograd, callback, initializer, io, metric, ndarray, random
+from . import lr_scheduler, model, module, optimizer, symbol
+from . import module as mod
 from . import ndarray as nd
+from . import symbol as sym
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, current_context, gpu, tpu
 
@@ -30,4 +37,5 @@ init = initializer   # mx.init.Xavier()
 
 __all__ = ["MXNetError", "cpu", "gpu", "tpu", "current_context", "metric",
            "nd", "ndarray", "autograd", "random", "initializer", "init",
-           "io"]
+           "io", "sym", "symbol", "mod", "module", "callback", "model",
+           "optimizer", "lr_scheduler", "AttrScope"]

@@ -21,6 +21,15 @@ the port derives from, with Gluon's parameter model on top:
   :378-384): a block called with NDArray arguments runs on their tensors
   and returns NDArrays; called with tensors it returns tensors.
 
+Hybridization (:255, :320-400, :537-560): ``hybridize()`` recurses into
+the children; a :class:`HybridBlock` made active runs its whole forward
+through one ``cached_op.CachedOp`` (:func:`build_cached_op`, the one place
+that decides which parameters are aux): captured into a CUDA graph per
+input signature on the card, run eagerly on the CPU.  Inside a cached
+forward the children run eagerly, so the outermost active block owns the
+graph.  ``export`` and ``SymbolBlock`` are not ported yet: they need the
+layers to trace into ``sym.*``.
+
 The functional API (:562-630): :func:`functional_call`,
 :func:`param_values`, :func:`split_param_names` and
 :func:`_with_param_override` run a block as a pure function of its
@@ -40,7 +49,8 @@ from ..ndarray.ndarray import NDArray
 from . import parameter
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "functional_call", "param_values", "split_param_names"]
+__all__ = ["Block", "HybridBlock", "build_cached_op", "functional_call",
+           "param_values", "split_param_names"]
 
 
 class _BlockScope:
@@ -268,6 +278,13 @@ class Block(nn.Module):
             return type(out)(NDArray(o) for o in out)
         return NDArray(out)
 
+    def hybridize(self, active=True, **kwargs):
+        """Hybridize the children (a plain block has no cache of its
+        own)."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
+
     def cast(self, dtype):
         """Cast the children (by their own rule), then this block's own
         parameters and floating-point buffers (BatchNorm's running
@@ -291,6 +308,107 @@ class Block(nn.Module):
                     and buf.is_floating_point():
                 self._buffers[name] = buf.to(dtype)
         return self
+
+
+# ---------------------------------------------------------------------------
+# hybridization
+
+_TRACE = threading.local()
+
+
+class _CachedForward:
+    """Marks this thread as inside a CachedOp's forward: active blocks
+    called there run eagerly, in the graph their outermost block owns."""
+
+    def __enter__(self):
+        _TRACE.depth = getattr(_TRACE, "depth", 0) + 1
+
+    def __exit__(self, *exc):
+        _TRACE.depth -= 1
+
+
+def _in_cached_forward():
+    return getattr(_TRACE, "depth", 0) > 0
+
+
+class HybridBlock(Block):
+    """A block whose forward can run as one ``CachedOp``
+    (``mxnet_tpu/gluon/block.py:320``): after ``hybridize()`` a call goes
+    through the op, captured per input signature on the card."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._cached_op = None
+        self._cached_param_vals = None
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if isinstance(value, HybridBlock):
+            self._clear_cached_op()
+
+    def hybridize(self, active=True, **kwargs):
+        """Make this block's calls (``active``) go through one CachedOp,
+        dropping the one it had.  Recurses into the children.  MXNet's
+        ``static_alloc`` and ``static_shape`` are accepted in ``kwargs``
+        and ignored: a captured graph's memory and shapes are static
+        already."""
+        self._active = active
+        self._clear_cached_op()
+        super().hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        self._clear_cached_op()
+        return super().cast(dtype)
+
+    def _clear_cached_op(self):
+        self._cached_op = None
+        self._cached_param_vals = None
+
+    def _build_cache(self):
+        self._cached_op, params = build_cached_op(self)
+        self._cached_param_vals = {n: p._check_and_get()
+                                   for n, p in params.items()}
+
+    def hybrid_call(self, *args, **kwargs):
+        """The eager forward, whether or not the block is active."""
+        return Block.__call__(self, *args, **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        if not self._active or kwargs or _in_cached_forward():
+            return Block.__call__(self, *args, **kwargs)
+        if self._cached_op is None:
+            params = self.collect_params().values()
+            if any(p._is_lazy() for p in params):
+                # shapes wait for this call: run it eagerly, then build
+                out = Block.__call__(self, *args)
+                self._build_cache()
+                return out
+            self._build_cache()
+        return self._cached_op(self._cached_param_vals, *args)
+
+
+def build_cached_op(block):
+    """A CachedOp over ``block``'s whole forward, and its ``{name:
+    Parameter}``: the one construction point (``hybridize`` and the
+    serving registry), and the one place that decides which parameters are
+    aux: ``grad_req='null'`` ones named as running or moving statistics,
+    which a training call writes in place."""
+    from ..cached_op import CachedOp
+    params = {p.name: p for p in block.collect_params().values()}
+    aux_names = [name for name, p in params.items() if p.grad_req == "null"
+                 and ("running" in name or "moving" in name)]
+    call = block.hybrid_call if isinstance(block, HybridBlock) \
+        else block.__call__
+
+    def forward_fn(param_vals, *inputs):
+        with _CachedForward():
+            return _with_param_override(block, params, param_vals,
+                                        lambda: call(*inputs))
+
+    cop = CachedOp(forward_fn, {n: p._check_and_get()
+                                for n, p in params.items()}, aux_names)
+    return cop, params
 
 
 # ---------------------------------------------------------------------------

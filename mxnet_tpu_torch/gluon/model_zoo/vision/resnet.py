@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ...block import Block
+from ...block import HybridBlock
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, GlobalAvgPool2D,
                    HybridSequential, MaxPool2D)
 from ...nn.conv_layers import _resolve_layout
@@ -43,7 +43,7 @@ def _bn_axis(layout):
     return layout.index("C")
 
 
-class BasicBlockV1(Block):
+class BasicBlockV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout=None, device=None, **kwargs):
         super().__init__(**kwargs)
@@ -72,7 +72,7 @@ class BasicBlockV1(Block):
         return torch.relu(residual + out)
 
 
-class BottleneckV1(Block):
+class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout=None, device=None, **kwargs):
         super().__init__(**kwargs)
@@ -108,7 +108,7 @@ class BottleneckV1(Block):
         return torch.relu(residual + out)
 
 
-class BasicBlockV2(Block):
+class BasicBlockV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout=None, device=None, **kwargs):
         super().__init__(**kwargs)
@@ -135,7 +135,7 @@ class BasicBlockV2(Block):
         return self.conv2(x) + residual
 
 
-class BottleneckV2(Block):
+class BottleneckV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout=None, device=None, **kwargs):
         super().__init__(**kwargs)
@@ -182,7 +182,7 @@ def _make_layer(block, layers, channels, stride, stage_index, in_channels,
     return layer
 
 
-class ResNetV1(Block):
+class ResNetV1(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout=None, device=None, **kwargs):
         super().__init__(**kwargs)
@@ -212,7 +212,7 @@ class ResNetV1(Block):
         return self.output(self.features(x))
 
 
-class ResNetV2(Block):
+class ResNetV2(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout=None, device=None, **kwargs):
         super().__init__(**kwargs)

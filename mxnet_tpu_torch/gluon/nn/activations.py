@@ -7,12 +7,12 @@ accepts (``mxnet_tpu/ops/nn_ops.py:416``): relu, sigmoid, tanh, softrelu
 from __future__ import annotations
 
 from ...ops.nn_ops import ACTIVATIONS
-from ..block import Block
+from ..block import HybridBlock
 
 __all__ = ["Activation"]
 
 
-class Activation(Block):
+class Activation(HybridBlock):
     def __init__(self, activation, prefix=None, params=None):
         if activation not in ACTIVATIONS:
             raise ValueError("unknown act_type %s" % activation)

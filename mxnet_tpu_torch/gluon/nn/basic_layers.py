@@ -25,13 +25,13 @@ from ...base import as_dtype
 from ...context import resolve_device
 from ...ops.nn_ops import (batch_norm_output, batch_stats, fully_connected,
                            layer_norm)
-from ..block import Block
+from ..block import HybridBlock
 
 __all__ = ["Dense", "Embedding", "LayerNorm", "BatchNorm", "Flatten",
            "HybridSequential"]
 
 
-class Dense(Block):
+class Dense(HybridBlock):
     """y = act(x W^T + b); with ``flatten`` the input is (B, -1) first."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
@@ -68,7 +68,7 @@ class Dense(Block):
         return F.relu(y) if self._activation == "relu" else y
 
 
-class Embedding(Block):
+class Embedding(HybridBlock):
     """Row lookup in a ``[input_dim, output_dim]`` table (int32 or int64
     indices)."""
 
@@ -88,7 +88,7 @@ class Embedding(Block):
         return F.embedding(x, self.weight)
 
 
-class LayerNorm(Block):
+class LayerNorm(HybridBlock):
     """Normalise over the last axis with the biased variance, eps 1e-5."""
 
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
@@ -115,7 +115,7 @@ class LayerNorm(Block):
         return layer_norm(x, self.gamma, self.beta)
 
 
-class BatchNorm(Block):
+class BatchNorm(HybridBlock):
     """Batch normalization over ``axis`` (1, or -1 inside
     ``nn.channels_last()``), as the JAX layer (``basic_layers.py:164-248``)
     and op (``mxnet_tpu/ops/nn_ops.py:304-350``) compute it.
@@ -223,14 +223,14 @@ class BatchNorm(Block):
         return y.movedim(1, axis)
 
 
-class Flatten(Block):
+class Flatten(HybridBlock):
     """(B, ...) -> (B, -1)."""
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
 
 
-class HybridSequential(Block, nn.Sequential):
+class HybridSequential(HybridBlock, nn.Sequential):
     """Children run in order; ``add`` appends, as in Gluon (children given
     to the constructor are added first)."""
 

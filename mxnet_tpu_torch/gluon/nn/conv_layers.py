@@ -25,7 +25,7 @@ from contextlib import contextmanager
 
 from ...context import resolve_device
 from ...ops.nn_ops import _channel_first, convolution, pooling  # noqa: F401
-from ..block import Block
+from ..block import HybridBlock
 from .activations import Activation
 
 __all__ = ["channels_last", "Conv1D", "Conv2D", "Conv3D", "MaxPool2D",
@@ -72,7 +72,7 @@ def _pair(v, n):
     return (int(v),) * n
 
 
-class _Conv(Block):
+class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels, activation, use_bias,
                  weight_initializer, bias_initializer, prefix, params,
@@ -165,7 +165,7 @@ class Conv3D(_Conv):
                          prefix, params, device)
 
 
-class _Pooling(Block):
+class _Pooling(HybridBlock):
     """2-D max or average pooling (``ops.nn_ops.pooling``, the JAX
     ``Pooling`` op, ``mxnet_tpu/ops/nn_ops.py:161``).  ``ceil_mode`` is its
     'full' convention.  Global pools reduce the spatial axes, keeping

@@ -40,7 +40,7 @@ __all__ = ["CausalSelfAttention", "Block", "TransformerLM", "pattern_batch",
            "main"]
 
 
-class CausalSelfAttention(block.Block):
+class CausalSelfAttention(block.HybridBlock):
     def __init__(self, dim, heads, device=None, **kwargs):
         super().__init__(**kwargs)
         if dim % heads:
@@ -68,7 +68,7 @@ class CausalSelfAttention(block.Block):
         return self.out(att.transpose(1, 2).reshape(B, T, C))
 
 
-class Block(block.Block):
+class Block(block.HybridBlock):
     def __init__(self, dim, heads, device=None, **kwargs):
         super().__init__(**kwargs)
         with self.name_scope():
@@ -85,7 +85,7 @@ class Block(block.Block):
         return x + self.mlp(self.ln2(x))
 
 
-class TransformerLM(block.Block):
+class TransformerLM(block.HybridBlock):
     """Token + position embeddings, ``depth`` blocks, final LayerNorm and
     a vocab head, on ``device`` (default ``cuda:0``).  ``initialize`` draws
     the embeddings; the other layers draw at the first call, which fills

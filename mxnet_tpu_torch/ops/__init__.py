@@ -9,3 +9,5 @@ from .registry import get_op, list_ops
 
 __all__ = ["flash_attention", "sgd_update", "sgd_mom_update", "adam_update",
            "get_op", "list_ops"]
+
+nn_ops.set_symbol_specs()

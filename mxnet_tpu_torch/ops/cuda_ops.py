@@ -18,6 +18,7 @@ neither has the port.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -115,19 +116,45 @@ def _flash_attention_op(attrs, q, k, v):
                            scale=attrs.get("scale"))
 
 
+def _flash_attention_plain(attrs, q, k, v):
+    """The op's plain version (symbolic shape inference on ``meta``)."""
+    D = q.shape[-1]
+    scale = attrs.get("scale")
+    return _attention_reference(q, k, v, bool(attrs.get("causal", False)),
+                                1.0 / math.sqrt(D) if scale is None
+                                else float(scale))
+
+
+def _set_plain():
+    from .registry import get_op
+    get_op("_contrib_flash_attention").plain = _flash_attention_plain
+
+
+_set_plain()
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel on the card, the plain version on the CPU.
     Backward: the vjp of the plain version at the saved inputs (the JAX
     ``f_bwd``).  The saved q/k/v may be strided views of one projection;
     their gradients have the views' shapes, and autograd scatters them into
-    the projection's gradient."""
+    the projection's gradient.
+
+    The backward's own ``torch.autograd.grad`` runs on the stream the
+    forward ran on: that nested backward ends by syncing its caller's
+    current stream, which on autograd's device thread would otherwise be
+    the legacy default stream, and a CUDA graph capturing the outer
+    backward (``cached_op.CachedOp``) cannot make that stream wait on
+    it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale = causal, scale
         if q.device.type == "cpu":
+            ctx.stream = None
             return _attention_reference(q, k, v, causal, scale)
+        ctx.stream = torch.cuda.current_stream(q.device)
         return _flash_attention_cuda(q, k, v, causal, scale)
 
     @staticmethod
@@ -135,7 +162,9 @@ class _FlashAttention(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(need) for t, need in
                   zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
         wrt = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
+        on_stream = contextlib.nullcontext() if ctx.stream is None \
+            else torch.cuda.stream(ctx.stream)
+        with torch.enable_grad(), on_stream:
             out = _attention_reference(*inputs, ctx.causal, ctx.scale)
             grads = iter(torch.autograd.grad(out, wrt, grad_out))
         return tuple(next(grads) if t.requires_grad else None
@@ -181,7 +210,11 @@ def _flash_attention_cuda(q, k, v, causal, scale):
         raise MXNetError("flash_attention kernel launch failed: cudaError %d "
                          "at q %s k %s %s" % (err, tuple(q.shape),
                                               tuple(k.shape), q.dtype))
-    with _launch_lock:
-        flash_attention.launches += 1
-        flash_attention.launches_by_dtype[str(q.dtype)[len("torch."):]] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        # a call under CUDA-graph capture records the launch into the graph
+        # and runs nothing; a graph's replays make no call here at all
+        dtype = str(q.dtype)[len("torch."):]
+        with _launch_lock:
+            flash_attention.launches += 1
+            flash_attention.launches_by_dtype[dtype] += 1
     return out

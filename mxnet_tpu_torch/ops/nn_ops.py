@@ -345,3 +345,90 @@ def _softmax_cross_entropy(attrs, data, label):
     picked = torch.gather(logp, -1, idx.clamp(0, data.shape[-1] - 1)
                           .unsqueeze(-1)).squeeze(-1)
     return -(picked * valid).sum().reshape(1)
+
+
+# ---------------------------------------------------------------------------
+# the symbolic API's input specs and parameter shapes (the JAX package's
+# ``nn_ops.py:1185-1340``, for the ops ported here)
+
+def _with_bias(attrs):
+    return ["data", "weight"] + ([] if attrs.get("no_bias") else ["bias"])
+
+
+def _prod(t):
+    n = 1
+    for s in t:
+        n *= s
+    return n
+
+
+def _fc_param_shapes(attrs, in_shapes):
+    data = in_shapes[0]
+    nh = int(attrs["num_hidden"])
+    in_dim = _prod(data[1:]) if bool(attrs.get("flatten", True)) \
+        else data[-1]
+    out = {"weight": (nh, in_dim)}
+    if not attrs.get("no_bias"):
+        out["bias"] = (nh,)
+    return out
+
+
+def _conv_param_shapes(attrs, in_shapes):
+    data = in_shapes[0]
+    nf = int(attrs["num_filter"])
+    ng = int(attrs.get("num_group", 1))
+    kernel = (attrs["kernel"],) if isinstance(attrs["kernel"], int) \
+        else tuple(attrs["kernel"])
+    layout = attrs.get("layout")
+    if layout is not None and not layout.startswith("NC"):
+        out = {"weight": (nf,) + kernel + (data[-1] // ng,)}
+    else:
+        out = {"weight": (nf, data[1] // ng) + kernel}
+    if not attrs.get("no_bias"):
+        out["bias"] = (nf,)
+    return out
+
+
+def _bn_param_shapes(attrs, in_shapes):
+    c = in_shapes[0][int(attrs.get("axis", 1))]
+    return {"gamma": (c,), "beta": (c,), "moving_mean": (c,),
+            "moving_var": (c,)}
+
+
+def _ln_param_shapes(attrs, in_shapes):
+    c = in_shapes[0][int(attrs.get("axis", -1))]
+    return {"gamma": (c,), "beta": (c,)}
+
+
+def _embedding_param_shapes(attrs, in_shapes):
+    return {"weight": (int(attrs["input_dim"]), int(attrs["output_dim"]))}
+
+
+def _softmax_output_label_shape(attrs, in_shapes):
+    data = in_shapes[0]
+    if attrs.get("multi_output"):
+        return {"label": (data[0],) + tuple(data[2:])}
+    if attrs.get("preserve_shape"):
+        return {"label": tuple(data[:-1])}
+    return {"label": (data[0],)}
+
+
+def set_symbol_specs():
+    """Attach the specs (once every op module has registered)."""
+    from .registry import get_op
+    specs = {
+        "FullyConnected": (_with_bias, _fc_param_shapes),
+        "Convolution": (_with_bias, _conv_param_shapes),
+        "BatchNorm": (["data", "gamma", "beta", "aux:moving_mean",
+                       "aux:moving_var"], _bn_param_shapes),
+        "LayerNorm": (["data", "gamma", "beta"], _ln_param_shapes),
+        "Embedding": (["data", "weight"], _embedding_param_shapes),
+        "SoftmaxOutput": (["data", "label:label"],
+                          _softmax_output_label_shape),
+        "softmax_cross_entropy": (["data", "label:label"],
+                                  _softmax_output_label_shape),
+    }
+    for name, (spec, shapes) in specs.items():
+        op = get_op(name)
+        op.arg_spec, op.param_shape_fn = spec, shapes
+

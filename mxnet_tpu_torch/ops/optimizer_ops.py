@@ -5,7 +5,9 @@
 Plain functions on tensors that return the new weight and states, as the
 JAX ops do; the Optimizer writes them back.  They are elementwise, which
 XLA fuses in the JAX package and no Pallas kernel covers, so they stay
-PyTorch ops.  ``lr`` and ``wd`` are Python floats.
+PyTorch ops.  ``lr`` and ``wd`` are Python floats, or ``lr`` a 0-d fp32
+tensor on the weight's device (a captured train step's learning rate):
+the same elementwise arithmetic, a scalar multiply in fp32 either way.
 
 The gradient is prepared as ``_prep_grad`` does there: rescaled, then
 clipped to ``[-clip, clip]`` (when ``clip_gradient`` > 0), and only then

@@ -42,6 +42,15 @@ class Op:
     - ``mutate_inputs``: input positions that outputs 1, 2, ... write back
       to when ``out=`` names only the first output (MXNet's
       ``FMutateInputs``: an update op's states).
+
+    For the symbolic API (``symbol/``), set after registration as in the
+    JAX package: ``arg_spec``, the ordered input names from which
+    ``sym.*`` calls create the missing parameter, ``aux:`` and ``label:``
+    variables (NNVM's ``FListInputNames``), a list or a callable of the
+    attrs; ``param_shape_fn(attrs, in_shapes) -> {input name: shape}``,
+    the shapes those inputs take from the data's; and ``plain``, the
+    ``fcompute`` that shape inference runs on ``meta`` tensors where the
+    op's own launches a kernel (``_contrib_flash_attention``).
     """
 
     def __init__(self, name, fcompute, num_outputs=1, needs_rng=False,
@@ -56,6 +65,9 @@ class Op:
         self.dynamic_attrs = tuple(dynamic_attrs)
         self.no_grad = no_grad
         self.mutate_inputs = tuple(mutate_inputs)
+        self.arg_spec = None
+        self.param_shape_fn = None
+        self.plain = None
         self.__doc__ = doc or (fcompute.__doc__ if fcompute else None)
 
     def rng_for(self, attrs):
@@ -67,6 +79,10 @@ class Op:
         """Whether this call (given its attrs) receives ``_training``."""
         f = self.mode_dependent
         return bool(f(attrs)) if callable(f) else bool(f)
+
+    def input_names(self, attrs):
+        spec = self.arg_spec
+        return spec(attrs) if callable(spec) else spec
 
     def n_outputs(self, attrs):
         no = self.num_outputs

@@ -5,7 +5,13 @@
 An update calls a plain function of ``ops/optimizer_ops.py`` and copies the
 new weight and states back into the tensors in place.  The step-dependent
 scalars (Adam's bias correction) are Python floats, as on the JAX
-package's eager path.
+package's eager path.  An optimizer marked ``trace_safe`` (SGD, Adam) also
+updates when its learning rate and Adam's step count ``t`` are 0-d tensors
+on the card (``module/compiled_step.py`` ``_step_hyperparams``): a captured
+train step reads them from buffers that are written before each replay,
+where a Python float would be frozen into the graph.  Adam's bias
+correction then runs in fp32 on the device, where the eager path runs it in
+float64.
 
 ``multi_precision=True`` keeps an fp32 master copy of each fp16 or bf16
 weight in its state (``create_state_multi_precision``) and updates the
@@ -37,6 +43,9 @@ class Optimizer:
     Trainer's position of it)."""
 
     opt_registry = {}
+    # whether update() is correct with a 0-d tensor learning rate and step
+    # count (the compiled step's capture)
+    trace_safe = False
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -164,6 +173,8 @@ def _write_back(targets, values):
 class SGD(Optimizer):
     """SGD, with momentum when ``momentum`` > 0."""
 
+    trace_safe = True
+
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
@@ -205,6 +216,8 @@ class Adam(Optimizer):
     ``lr * sqrt(1 - beta2^t) / (1 - beta1^t)`` in Python floats, and
     ``epsilon`` is added to the uncorrected ``sqrt(var)``."""
 
+    trace_safe = True
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -224,7 +237,10 @@ class Adam(Optimizer):
         attrs = self._common(index)
         coef1 = 1.0 - self.beta1 ** t
         coef2 = 1.0 - self.beta2 ** t
-        attrs["lr"] = attrs["lr"] * math.sqrt(coef2) / coef1
+        # t is a 0-d tensor under the compiled step's capture
+        root = coef2.sqrt() if isinstance(coef2, torch.Tensor) \
+            else math.sqrt(coef2)
+        attrs["lr"] = attrs["lr"] * root / coef1
         mean, var = state
         _write_back((weight, mean, var), optimizer_ops.adam_update(
             weight, grad, mean, var, beta1=self.beta1, beta2=self.beta2,

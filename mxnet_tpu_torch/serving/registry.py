@@ -1,13 +1,14 @@
-"""Multi-model registry: loadable, warmable, inference-mode models.
+"""Multi-model registry: loadable, warmable, inference-mode CachedOps.
 
 Counterpart of ``mxnet_tpu/serving/registry.py``.  A ``ServableModel``
-wraps one ``nn.Module`` plus its bucket menu (admissible input shapes x
-batch ladder).  The JAX package runs the block as an inference-mode
-``CachedOp`` and warms up to compile every signature; here the module runs
-eagerly under ``torch.inference_mode()`` on its own device, and
-``warmup()`` runs every (shape variant, ladder rung) once so first traffic
-meets built kernels and a settled allocator.  There is nothing to compile,
-so the warmup report carries no compile counts.
+wraps one Gluon block as an inference-mode ``cached_op.CachedOp`` (its
+own instance, built by ``gluon.block.build_cached_op``, so the block's
+``hybridize`` cache is left alone) plus its bucket menu (admissible input
+shapes x batch ladder).  ``warmup()`` runs a zeros batch for every (shape
+variant, ladder rung) at load time, which on the card captures each
+signature's CUDA graph before traffic arrives; after that
+``cache_stats()`` shows no new misses in steady state, and each batch is
+one graph replay.  On the CPU the op runs the block eagerly.
 
 The registry itself is a flat name -> ServableModel map guarded by one lock;
 models load/unload independently and hold no shared mutable state.
@@ -19,7 +20,7 @@ import threading
 import numpy as np
 import torch
 
-from .. import util
+from .. import autograd, util
 from ..base import MXNetError
 from .buckets import BucketLadder, normalize_shape_variants, shape_key
 from .health import CircuitBreaker
@@ -35,8 +36,8 @@ _EXEC_BACKOFF_S = 0.002
 
 
 class ServableModel:
-    """One loaded model: module + device + bucket menu + per-model stats +
-    circuit breaker (health.py)."""
+    """One loaded model: CachedOp + device + bucket menu + per-model stats
+    + circuit breaker (health.py)."""
 
     def __init__(self, name, block, input_shapes, device, dtype="float32",
                  max_batch=8, batch_ladder=None, breaker_threshold=5,
@@ -58,6 +59,10 @@ class ServableModel:
             self.dtypes = [np.dtype(d) for d in dtype]
         else:
             self.dtypes = [np.dtype(dtype)] * n_inputs
+        self._ensure_initialized(block)
+        from ..gluon.block import build_cached_op
+        self._cop, params = build_cached_op(block)
+        self._params = {n: p._check_and_get() for n, p in params.items()}
         self.stats = ModelStats()
         self.breaker = CircuitBreaker(
             failure_threshold=breaker_threshold,
@@ -72,6 +77,16 @@ class ServableModel:
             tuple((shape, str(dt)) for shape, dt in zip(v, self.dtypes))
             for v in self.variants)
 
+    def _ensure_initialized(self, block):
+        """Finish deferred parameter shapes with a zeros probe if needed."""
+        if not any(p._is_lazy() for p in block.collect_params().values()):
+            return
+        probe = [torch.zeros((1,) + v, dtype=_torch_dtype(dt),
+                             device=self.device)
+                 for v, dt in zip(self.variants[0], self.dtypes)]
+        with autograd.pause():
+            block(*probe)
+
     # ------------------------------------------------------------------
     def execute(self, batch_arrays):
         """Run one padded batch (numpy, batch-major) -> list of numpy
@@ -81,21 +96,25 @@ class ServableModel:
         return self._execute_retry(batch_arrays)
 
     def _execute_once(self, batch_arrays):
-        # inference mode is per-thread state: enter it here, on whichever
-        # thread (batcher worker, warmup caller) runs the batch; CUDA
-        # kernels launch on that thread's current stream of self.device
-        with torch.inference_mode():
-            inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                      for a in batch_arrays]
-            out = self.block(*inputs)
-            outs = list(out) if isinstance(out, (list, tuple)) else [out]
-            # serving boundary: results materialize on the host
-            return [o.cpu().numpy() for o in outs]
+        # recording and training are per-thread state: pause both here, on
+        # whichever thread (batcher worker, warmup caller) runs the batch;
+        # the op replays and copies its outputs under its own lock, on that
+        # thread's current stream of self.device
+        inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                  for a in batch_arrays]
+        with autograd.pause():
+            out = self._cop(self._params, *inputs)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        # serving boundary: results materialize on the host
+        return [o.cpu().numpy() for o in outs]
 
     def warmup(self):
-        """Run every (shape variant, ladder rung) signature once.
+        """Capture every (shape variant, ladder rung) signature.
 
-        Returns {"signatures": n} and stores it as ``self.warmup_report``."""
+        Returns {"signatures": n, "compiles": misses_delta, "cache": {...}}
+        and stores it as ``self.warmup_report``: load-time cost for zero
+        captures in steady state."""
+        before = self._cop.cache_stats()["misses"]
         n = 0
         for variant in self.variants:
             for rung in self.ladder:
@@ -103,11 +122,26 @@ class ServableModel:
                           for shape, dt in zip(variant, self.dtypes)]
                 self.execute(arrays)
                 n += 1
-        self.warmup_report = {"signatures": n}
+        after = self._cop.cache_stats()
+        self.warmup_report = {
+            "signatures": n,
+            "compiles": after["misses"] - before,
+            "cache": {"hits": after["hits"], "misses": after["misses"]},
+        }
         return self.warmup_report
+
+    def cache_stats(self):
+        return self._cop.cache_stats()
+
+    def capture_stats(self):
+        return self._cop.capture_stats()
 
     def admissible(self, arrays):
         return shape_key(arrays) in self.allowed_keys
+
+
+def _torch_dtype(dtype):
+    return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
 class ModelRegistry:

@@ -136,11 +136,14 @@ class ModelServer:
 
         ``device`` defaults to ``cuda:0`` and raises without CUDA; pass
         ``device="cpu"`` to serve on the CPU.  The module is moved there
-        (``block.to(device)``) and runs in inference mode.
+        (``block.to(device)``) and runs in inference mode as a
+        ``CachedOp``: one CUDA graph per (shape, rung) signature on the
+        card, captured by the warmup.
         ``input_shapes`` is the complete menu of admissible per-request
         shapes (batch dim excluded); requests outside it get
         INVALID_INPUT.  ``warmup=True`` runs every (shape, ladder rung)
-        signature once before the model takes traffic.  Outputs must be
+        signature once (on the card, its capture) before the model takes
+        traffic.  Outputs must be
         batch-major (row i of every output belongs to request i) — true of
         standard inference-mode networks.
         """
@@ -347,6 +350,11 @@ class ModelServer:
                 continue   # unloaded between names() and get()
             snap = model.stats.snapshot()
             snap["warmup"] = model.warmup_report
+            cache = model.cache_stats()
+            snap["cache"] = {"hits": cache["hits"],
+                             "misses": cache["misses"],
+                             "recompiles": cache["recompiles"],
+                             "signatures": len(cache["signatures"])}
             snap["health"] = model.breaker.health()
             snap["breaker"] = model.breaker.snapshot()
             # convenience alias; the breaker snapshot is the single source

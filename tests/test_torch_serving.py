@@ -85,7 +85,9 @@ def test_concurrent_clients_coalesce_into_shared_batches():
                                    rtol=1e-5, atol=1e-5)
     assert 1 <= snap["batches"] < len(reqs)
     assert snap["avg_batch"] > 1.0
-    assert snap["warmup"] == {"signatures": 2}
+    assert snap["warmup"] == {"signatures": 2, "compiles": 2,
+                              "cache": {"hits": 0, "misses": 2}}
+    assert snap["cache"]["recompiles"] == snap["warmup"]["compiles"]
 
 
 def test_deadline_expiry_returns_timeout_status():
