@@ -42,7 +42,16 @@ device-side accuracy included, one window of batches a graph
 ``mx.sym`` and ``Module.fit``, compiled and eager (``module_fit``).  A
 replay calls no kernel wrapper, so a graphed path's launches are its eager
 warm-up runs' (counted by the wrapper) plus its replays times the kernels
-torch.profiler sees in one replay.
+torch.profiler sees in one replay.  Last, the decode engine
+(``serving/decode``) serves a TinyCausalLM at the bench LM's widths token
+by token: 64 greedy streams through continuous batching attached to a
+ModelServer (``decode_serve``, with one replayed decode step profiled:
+no copy of a KV pool), the same traffic in static batches
+(``decode_static``), a sampled stream moved between engines mid-stream
+(``decode_handoff``), chunked prefill with the prefix cache and
+speculative decoding (``decode_prefix_spec``), and a 2-layer copy against
+the CPU (``decode_vs_cpu``).  Its attention is plain torch ops, as the
+JAX package's is jnp: flash_attention launches 0 times there.
 
     python3 chip_smoke.py
 
@@ -115,6 +124,25 @@ RESNET_BF16_PREDICT_BOUND = 5e-3
 # the LM's step-1 gradients, worst leaf ||a - b|| / ||b||: an H100 read
 # 0.0189 (tok.weight); the fp32 control 0.0204, the step control 0.0286
 LM_BF16_GRAD_REL_BOUND = 0.024
+# the decode engine at the bench LM's widths (serving/decode): the model,
+# the engine (table width 41 blocks, 8 x 41 + 1 = 329 blocks a pool), the
+# traffic (streams, prompt lengths, new tokens) and the streams held
+# against generate_reference
+DEC_MODEL = dict(vocab_size=VOCAB, hidden=DIM, num_layers=DEPTH,
+                 num_heads=HEADS, max_len=MAX_LEN)
+DEC_ENGINE = dict(max_slots=8, block_size=16, max_prompt_len=512,
+                  max_new_tokens=128, max_queue=256)
+DEC_TRAFFIC = (64, (16, 512), (32, 128))
+DEC_FIXED = 8
+# chunked prefill + prefix cache + speculation; its traffic: streams, the
+# shared prefix's length, suffix lengths, new tokens
+DEC_SPEC = dict(prefill_chunk=64, prefix_cache=True, spec_k=3)
+DEC_SPEC_TRAFFIC = (32, 256, (1, 256), (32, 128))
+DEC_DRAFT_LAYERS = 2
+# card vs CPU: layers, greedy streams; logits within this many times the
+# CPU fp32 run's own distance from an fp64 run
+DEC_VS_CPU = (2, 4)
+DEC_FP64_FACTOR = 4.0
 
 # published peaks by card (NVIDIA data sheets, dense): fp32 on CUDA cores,
 # TF32 and bf16 on tensor cores in FLOP/s, memory bandwidth in bytes/s
@@ -2713,6 +2741,437 @@ def module_fit(dev, card):
           card='"%s"' % card)
 
 
+# ---------------------------------------------------------------------------
+# the decode engine (serving/decode): the bench LM's widths as a
+# TinyCausalLM, served token by token through continuous batching
+
+
+def decode_traffic(seed, n, prompt_range, new_range, prefix=()):
+    """``n`` greedy requests: prompts of uniform length in ``prompt_range``
+    (after ``prefix``), budgets uniform in ``new_range``, from a seed."""
+    rng = np.random.RandomState(seed)
+    prompts, budgets = [], []
+    for _ in range(n):
+        length = int(rng.randint(prompt_range[0], prompt_range[1] + 1))
+        prompts.append(list(prefix) + rng.randint(0, VOCAB, length).tolist())
+        budgets.append(int(rng.randint(new_range[0], new_range[1] + 1)))
+    return prompts, budgets
+
+
+def decode_run(engine, prompts, budgets):
+    """Submit every request at once; wait them out.  Returns the streams
+    and the wall seconds from the first submit to the last terminal."""
+    t0 = time.time()
+    streams = [engine.submit(p, max_new_tokens=b, timeout_ms=600000)
+               for p, b in zip(prompts, budgets)]
+    for s in streams:
+        if not s.wait(900):
+            fail("%s: a stream never ended" % engine.name)
+    wall = time.time() - t0
+    bad = [(i, s.status, s.error) for i, s in enumerate(streams)
+           if s.status != "OK"]
+    if bad:
+        fail("%s: streams not OK: %s" % (engine.name, bad[:5]))
+    return streams, wall
+
+
+def decode_checks(engine, label, warm_caps, warm_misses):
+    """The steady-state gates: no capture and no signature miss after
+    warmup, every KV block back in the pool."""
+    caps = engine.capture_stats()
+    misses = engine.cache_stats()["misses"]
+    if caps["captures"] != warm_caps or misses != warm_misses:
+        fail("%s: traffic captured again: %d captures / %d misses after "
+             "warmup's %d / %d" % (label, caps["captures"], misses,
+                                   warm_caps, warm_misses))
+    kv = engine.kv_stats()
+    leaked = kv["allocated_total"] - kv["freed_total"]
+    if leaked or kv["used"] or kv["reserved"]:
+        fail("%s: KV blocks leaked: %s" % (label, kv))
+    return caps, kv, leaked
+
+
+def decode_warmup(engine, label, dev, t0):
+    warm = engine.warmup_report
+    want = warm["signatures"] if dev.type == "cuda" else 0
+    if warm["compiles"] != warm["signatures"] or warm["captures"] != want:
+        fail("%s: warmup %s" % (label, warm))
+    phase(label + "_warmup", signatures=warm["signatures"],
+          captures=warm["captures"], seconds=round(time.time() - t0, 2))
+    return engine.capture_stats()["captures"], \
+        engine.cache_stats()["misses"]
+
+
+def stream_numbers(streams, wall):
+    from mxnet_tpu_torch.serving.stats import stream_tpot_ms
+    ttft = [s.ttft_ms for s in streams]
+    tpot = [t for t in (stream_tpot_ms(s.latency_ms, s.ttft_ms,
+                                       len(s.tokens())) for s in streams)
+            if t is not None]
+    tokens = sum(len(s.tokens()) for s in streams)
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)),
+            "tpot_p50_ms": float(np.percentile(tpot, 50))}
+
+
+def trace_memcpys(prof):
+    """(bytes, name) of every device copy in a torch.profiler trace (the
+    exported chrome trace carries each copy's size)."""
+    import os
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        events = json.load(open(path)).get("traceEvents", [])
+    finally:
+        os.unlink(path)
+    return [(int(e.get("args", {}).get("bytes", -1)), e.get("name"))
+            for e in events if "memcpy" in str(e.get("cat", "")).lower()]
+
+
+def decode_step_profile(engine, label, card):
+    """torch.profiler over one replayed decode step of the live ops at the
+    widest table: its device time, and every copy it made, none of them
+    the size of a pool (the pools are written in place)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    S, W = engine.max_slots, engine._width_ladder.max_batch
+    args = (np.zeros(S, np.int32), np.zeros(S, np.int32),
+            np.zeros((S, W), np.int32))
+
+    def step():
+        return engine._decode_exec(engine._live, *args).cpu()
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    kernels = [e for e in prof.key_averages() if e.device_type != cpu]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if kernel_count({e.key: e.count for e in kernels}):
+        fail("%s: the decode step launched flash_attention" % label)
+    copies = trace_memcpys(prof)
+    if not copies or any(b < 0 for b, _ in copies):
+        fail("%s: the trace gives no copy sizes: %s" % (label, copies))
+    largest = max(copies)
+    pool_bytes = engine._live.pools[0].nbytes
+    if largest[0] >= pool_bytes:
+        fail("%s: a replayed decode step copied %d bytes (%s); a pool is %d"
+             % (label, largest[0], largest[1], pool_bytes))
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:5]
+    phase(label, width_blocks=W, device_ms=device_ms,
+          host_ms_per_step=host_ms, kernels=sum(e.count for e in kernels),
+          copies=len(copies), largest_copy_bytes=largest[0],
+          largest_copy=json.dumps(largest[1]), pool_bytes=pool_bytes,
+          top_device_ms=json.dumps([[e.key[:50],
+                                     e.self_device_time_total / 1e3]
+                                    for e in top]), card='"%s"' % card)
+    return device_ms
+
+
+def decode_serve(cuda_ops, dev, card):
+    """Phase: the decode engine at the bench LM's widths, attached to a
+    ModelServer: 64 greedy streams submitted at once.  All OK, no capture
+    after warmup, no block leaked, no flash_attention launch, and eight
+    fixed streams (the longest prompt among them) equal
+    ``generate_reference`` token for token."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.serving.decode import DecodeEngine, TinyCausalLM
+
+    t0 = time.time()
+    model = TinyCausalLM(seed=0, device=dev, **DEC_MODEL)
+    n_params = sum(t.numel() for t in model.param_dict().values())
+    engine = DecodeEngine(model, name="decode", device=dev, **DEC_ENGINE)
+    warm_caps, warm_misses = decode_warmup(engine, "decode", dev, t0)
+    prompts, budgets = decode_traffic(0, *DEC_TRAFFIC)
+    longest = int(np.argmax([len(p) for p in prompts]))
+    fixed = sorted(set(range(DEC_FIXED - 1)) | {longest})
+    t0 = time.time()
+    refs = {i: engine.generate_reference(prompts[i], budgets[i]).tolist()
+            for i in fixed}
+    ref_s = time.time() - t0
+    server = serving.ModelServer()
+    server.attach_engine(engine)
+    before = server.stats()["engines"]["decode"]
+    replays0 = engine.capture_stats()["replays"]
+    streams, wall = decode_run(engine, prompts, budgets)
+    launches = cuda_ops.flash_attention.launches
+    if launches:
+        fail("decode_serve launched flash_attention %d times" % launches)
+    caps, kv, leaked = decode_checks(engine, "decode_serve", warm_caps,
+                                     warm_misses)
+    wrong = [i for i in fixed if streams[i].tokens() != refs[i]]
+    if wrong:
+        i = wrong[0]
+        fail("decode_serve: stream %d (prompt %d) differs from its "
+             "reference at token %d" % (i, len(prompts[i]), next(
+                 j for j, (a, b) in enumerate(zip(streams[i].tokens() + [-1],
+                                                  refs[i])) if a != b)))
+    snap = server.stats()["engines"]["decode"]
+    steps = snap["steps"] - before["steps"]
+    numbers = stream_numbers(streams, wall)
+    phase("decode_serve", params=n_params, streams=len(streams),
+          ok=sum(s.status == "OK" for s in streams), steps=steps,
+          avg_live_slots=(snap["avg_live_slots"] * snap["steps"]
+                          - before["avg_live_slots"] * before["steps"])
+          / max(steps, 1), peak_blocks=kv["peak_used"],
+          kv_capacity=kv["num_blocks"], replays=caps["replays"] - replays0,
+          captures_after_warmup=caps["captures"] - warm_caps,
+          leaked_blocks=leaked, flash_attention_launches=launches,
+          reference_streams=len(fixed), references_equal=True,
+          longest_prompt=len(prompts[longest]), reference_s=ref_s,
+          card='"%s"' % card, **numbers)
+    if dev.type == "cuda":
+        decode_step_profile(engine, "decode_step_profile", card)
+    return model, engine, server, (prompts, budgets, streams, numbers)
+
+
+def decode_static(cuda_ops, dev, card, model, served):
+    """Phase: the same traffic through ``scheduling="static"`` (a batch
+    admitted only when the last one finished): the same tokens, and its
+    rate beside the continuous engine's."""
+    from mxnet_tpu_torch.serving.decode import DecodeEngine
+
+    prompts, budgets, streams, numbers = served
+    t0 = time.time()
+    engine = DecodeEngine(model, name="decode_static", device=dev,
+                          scheduling="static", **DEC_ENGINE)
+    warm_caps, warm_misses = decode_warmup(engine, "decode_static", dev, t0)
+    got, wall = decode_run(engine, prompts, budgets)
+    if cuda_ops.flash_attention.launches:
+        fail("decode_static launched flash_attention")
+    caps, kv, leaked = decode_checks(engine, "decode_static", warm_caps,
+                                     warm_misses)
+    diff = [i for i, (a, b) in enumerate(zip(got, streams))
+            if a.tokens() != b.tokens()]
+    if diff:
+        fail("decode_static: %d streams differ from the continuous "
+             "engine's, first %d" % (len(diff), diff[0]))
+    snap = engine.stats_snapshot()
+    mine = stream_numbers(got, wall)
+    phase("decode_static", streams=len(got), same_tokens=True,
+          steps=snap["steps"], avg_live_slots=snap["avg_live_slots"],
+          captures_after_warmup=caps["captures"] - warm_caps,
+          leaked_blocks=leaked,
+          continuous_tokens_per_s=numbers["tokens_per_s"],
+          continuous_over_static=numbers["tokens_per_s"]
+          / mine["tokens_per_s"], card='"%s"' % card, **mine)
+    return engine
+
+
+def decode_handoff(a, b, prompt):
+    """Phase: a seeded sampled stream exported from one engine mid-stream
+    and imported into another finishes as the unmoved stream does."""
+    kw = dict(temperature=0.8, top_k=64, top_p=0.95, seed=1234)
+    budget = min(64, a.max_new_tokens)
+    want = a.generate_reference(prompt, budget, **kw).tolist()
+    slow = lambda tok: time.sleep(0.005)  # noqa: E731  paces the worker
+    stream = a.submit(prompt, max_new_tokens=budget, timeout_ms=600000,
+                      on_token=slow, **kw)
+    deadline = time.time() + 120
+    while len(stream.tokens()) < budget // 8 and stream.status is None \
+            and time.time() < deadline:
+        time.sleep(0.001)
+    if not a.quiesce(30.0):
+        fail("decode_handoff: the engine did not park")
+    moved = a.export_streams()
+    a.resume()
+    if [s for s, _ in moved] != [stream]:
+        fail("decode_handoff: exported %d streams" % len(moved))
+    snap = moved[0][1]
+    stream.set_owner("moved")
+    b.import_stream(snap, stream=stream, owner="moved")
+    if not stream.wait(600) or stream.status != "OK":
+        fail("decode_handoff: stream ended %s" % stream.status)
+    if stream.tokens() != want:
+        fail("decode_handoff: the moved stream differs from the unmoved "
+             "one")
+    for eng in (a, b):
+        kv = eng.kv_stats()
+        if kv["allocated_total"] != kv["freed_total"] or kv["used"]:
+            fail("decode_handoff: %s leaked blocks: %s" % (eng.name, kv))
+    phase("decode_handoff", prompt=len(prompt), tokens=len(want),
+          moved_at=snap["generated"], pages=snap["k"].shape[1],
+          page_bytes=snap["k"].nbytes + snap["v"].nbytes,
+          sampler_draws=snap["sampling"]["draws"], identical=True)
+
+
+def decode_prefix_spec(cuda_ops, dev, card, model):
+    """Phase: chunked prefill (64-token chunks), the prefix cache and
+    speculative decoding (3 draft tokens a round from a 2-layer draft at
+    the same widths, seed 1) over 32 streams sharing a 256-token prefix:
+    every stream equals ``generate_reference``."""
+    from mxnet_tpu_torch.serving.decode import DecodeEngine, TinyCausalLM
+
+    t0 = time.time()
+    draft = TinyCausalLM(seed=1, device=dev, **dict(
+        DEC_MODEL, num_layers=DEC_DRAFT_LAYERS))
+    engine = DecodeEngine(model, name="decode_spec", device=dev,
+                          draft_model=draft, **DEC_ENGINE, **DEC_SPEC)
+    warm_caps, warm_misses = decode_warmup(engine, "decode_spec", dev, t0)
+    n, prefix_len, suffix, new = DEC_SPEC_TRAFFIC
+    prefix = np.random.RandomState(2).randint(0, VOCAB, prefix_len)
+    prompts, budgets = decode_traffic(3, n, suffix, new, prefix=prefix)
+    t0 = time.time()
+    refs = [engine.generate_reference(p, b).tolist()
+            for p, b in zip(prompts, budgets)]
+    ref_s = time.time() - t0
+    streams, wall = decode_run(engine, prompts, budgets)
+    if cuda_ops.flash_attention.launches:
+        fail("decode_prefix_spec launched flash_attention")
+    caps, kv, leaked = decode_checks(engine, "decode_prefix_spec",
+                                     warm_caps, warm_misses)
+    wrong = [i for i, s in enumerate(streams) if s.tokens() != refs[i]]
+    if wrong:
+        fail("decode_prefix_spec: %d streams differ from their references,"
+             " first %d" % (len(wrong), wrong[0]))
+    snap = engine.stats_snapshot()
+    if not snap["prefix_hits"]:
+        fail("decode_prefix_spec: no prefix hit")
+    phase("decode_prefix_spec", streams=n, prefix=prefix_len,
+          references_equal=True, reference_s=ref_s,
+          prefix_hits=snap["prefix_hits"],
+          prefix_blocks_shared=snap["prefix_blocks_shared"],
+          cow_forks=snap["cow_forks"], spec_rounds=snap["spec_rounds"],
+          spec_proposed=snap["spec_proposed"],
+          spec_accepted=snap["spec_accepted"],
+          accept_rate=snap["spec_accept_rate"], steps=snap["steps"],
+          captures_after_warmup=caps["captures"] - warm_caps,
+          leaked_blocks=leaked, card='"%s"' % card,
+          **stream_numbers(streams, wall))
+    engine.stop()
+
+
+def decode_fn_inputs(seed, num_blocks):
+    """Seeded inputs of the five functions (after params, before pools)."""
+    rng = np.random.RandomState(seed)
+    S, bs, W = 8, DEC_ENGINE["block_size"], 6
+    # each slot its own blocks (1 to W of them), and positions that leave
+    # room for propose's and verify's three more tokens: no two slots
+    # write one page, so the pages written do not depend on write order
+    free = list(rng.permutation(np.arange(1, num_blocks)))
+    tables = np.zeros((S, W), np.int32)
+    positions = np.zeros(S, np.int32)
+    for s in range(S):
+        n = 1 + s % W
+        tables[s, :n] = [free.pop() for _ in range(n)]
+        positions[s] = min(int(rng.randint(0, n * bs)), n * bs - 4)
+    i32 = lambda *a: np.asarray(a, np.int32)  # noqa: E731
+    toks = np.zeros((1, 64), np.int32)
+    toks[0, :40] = rng.randint(0, VOCAB, 40)
+    return {
+        "prefill_fn": (toks, i32(40), tables[W - 1:W]),
+        "decode_fn": (rng.randint(0, VOCAB, S).astype(np.int32), positions,
+                      tables),
+        "chunk_prefill_fn": (rng.randint(0, VOCAB, (1, 32)).astype(np.int32),
+                             i32(16), i32(20), tables[W - 1:W]),
+        "verify_fn": (rng.randint(0, VOCAB, (S, 4)).astype(np.int32),
+                      positions, rng.randint(0, 5, S).astype(np.int32),
+                      tables),
+        "propose_fn": (rng.randint(0, VOCAB, S).astype(np.int32), positions,
+                       tables),
+    }
+
+
+def decode_vs_cpu(dev):
+    """Phase: the decode model cut to 2 layers on the card and on the CPU.
+    Each function's logits (propose: its token ids) on the same inputs and
+    pools, held at DEC_FP64_FACTOR times the CPU fp32 run's own distance
+    from an fp64 run; then four greedy streams, equal on both devices."""
+    from mxnet_tpu_torch.serving.decode import DecodeEngine, TinyCausalLM
+
+    kw = dict(DEC_MODEL, num_layers=DEC_VS_CPU[0])
+    models = {"card": TinyCausalLM(seed=3, device=dev, **kw),
+              "cpu": TinyCausalLM(seed=3, device="cpu", **kw)}
+    p64 = {k: v.double() for k, v in models["cpu"].param_dict().items()}
+    nb = 48
+    shape = (kw["num_layers"], nb, DEC_ENGINE["block_size"], HEADS,
+             DIM // HEADS)
+    rng = np.random.RandomState(4)
+    kp, vp = (rng.randn(*shape).astype(np.float32) for _ in range(2))
+    out = {}
+    for fn, args in decode_fn_inputs(5, nb).items():
+        extra = (3,) if fn == "propose_fn" else ()
+        res = {}
+        for key, params, device, dtype in (
+                ("card", models["card"].param_dict(), dev, torch.float32),
+                ("cpu", models["cpu"].param_dict(), "cpu", torch.float32),
+                ("fp64", p64, "cpu", torch.float64)):
+            pools = [torch.from_numpy(p).to(device, dtype) for p in (kp, vp)]
+            ins = [torch.from_numpy(np.asarray(a)).to(device) for a in args]
+            with torch.no_grad():
+                got = getattr(models["cpu"], fn)(params, *ins, *pools,
+                                                 *extra)[0]
+            res[key] = got.cpu().double().numpy()
+        if fn == "propose_fn":
+            if not np.array_equal(res["card"], res["cpu"]):
+                fail("decode_vs_cpu: propose_fn's ids differ card vs CPU")
+            out[fn] = {"ids_equal": True}
+            continue
+        ref = float(np.abs(res["cpu"] - res["fp64"]).max())
+        err = float(np.abs(res["card"] - res["cpu"]).max())
+        bound = DEC_FP64_FACTOR * ref
+        if not err <= bound:
+            fail("decode_vs_cpu: %s logits %.3g apart card vs CPU; bound "
+                 "%.3g (%g x the CPU's %.3g from fp64)"
+                 % (fn, err, bound, DEC_FP64_FACTOR, ref))
+        out[fn] = {"max_abs_err": err, "bound": bound, "cpu_vs_fp64": ref,
+                   "card_vs_fp64": float(np.abs(res["card"]
+                                                - res["fp64"]).max())}
+    ecfg = dict(max_slots=4, block_size=DEC_ENGINE["block_size"],
+                max_prompt_len=64, max_new_tokens=32)
+    prompts, budgets = decode_traffic(6, DEC_VS_CPU[1], (8, 64), (16, 32))
+    tokens = {}
+    for key in ("card", "cpu"):
+        engine = DecodeEngine(models[key], name="vs_" + key, **ecfg)
+        try:
+            streams, _ = decode_run(engine, prompts, budgets)
+            tokens[key] = [s.tokens() for s in streams]
+        finally:
+            engine.stop()
+    if tokens["card"] != tokens["cpu"]:
+        fail("decode_vs_cpu: greedy streams differ card vs CPU")
+    phase("decode_vs_cpu", layers=kw["num_layers"], functions=json.dumps(out),
+          fp64_factor=DEC_FP64_FACTOR, streams=len(prompts),
+          streams_equal=True)
+
+
+def decode_phases(cuda_ops, dev, card):
+    """The decode engine's phases; returns flash_attention's launches over
+    them, which each phase holds at 0: the decode path (attention in
+    plain torch ops, as the JAX package's is jnp) launches no hand
+    kernel."""
+    reset_launches(cuda_ops)
+    model, engine, server, served = decode_serve(cuda_ops, dev, card)
+    static = decode_static(cuda_ops, dev, card, model, served)
+    prompts = served[0]
+    decode_handoff(engine, static, prompts[int(np.argmin(
+        [abs(len(p) - 128) for p in prompts]))])
+    server.stop()            # stops the attached engine
+    static.stop()
+    if engine.submit([1]).status != "UNAVAILABLE":
+        fail("ModelServer.stop() left its decode engine running")
+    del engine, static, server, served
+    decode_prefix_spec(cuda_ops, dev, card, model)
+    del model
+    decode_vs_cpu(dev)
+    launches = cuda_ops.flash_attention.launches
+    if launches:
+        fail("the decode phases launched flash_attention %d times"
+             % launches)
+    return launches
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -2787,6 +3246,8 @@ def main():
     if cuda_ops.flash_attention.launches:
         fail("module_fit launched flash_attention")
 
+    launches_decode = decode_phases(cuda_ops, dev, smi)
+
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
@@ -2798,7 +3259,8 @@ def main():
               "launches_hybrid_train": launches_hybrid,
               "launches_train_bf16": launches_train_bf16,
               "launches_nd": launches_nd,
-              "launches_functional": launches_functional}
+              "launches_functional": launches_functional,
+              "launches_decode": launches_decode}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

@@ -20,7 +20,7 @@ import threading
 import numpy as np
 import torch
 
-from .. import autograd, util
+from .. import autograd, faults, util
 from ..base import MXNetError
 from .buckets import BucketLadder, normalize_shape_variants, shape_key
 from .health import CircuitBreaker
@@ -96,6 +96,7 @@ class ServableModel:
         return self._execute_retry(batch_arrays)
 
     def _execute_once(self, batch_arrays):
+        faults.fault_point("serving.predict", model=self.name)
         # recording and training are per-thread state: pause both here, on
         # whichever thread (batcher worker, warmup caller) runs the batch;
         # the op replays and copies its outputs under its own lock, on that

@@ -25,9 +25,11 @@ then half-open probing with exponential backoff recovers the model the
 moment its backend comes back.  ``stats()`` exposes per-model ``health``
 (HEALTHY/DEGRADED/UNAVAILABLE) and the breaker counters.
 
-Not yet ported: decode engines (``attach_engine``/``detach_engine``/
-``engines``, the decode slice), ``load_exported`` (the symbol/export slice)
-and the ``serving.predict`` fault point (the port of ``faults.py``).
+Decode engines (``serving/decode``) attach to the same surface:
+``attach_engine`` registers one under its name, ``stats()`` and
+``health()`` report it beside the batched models, and ``stop()`` tears it
+down with them.  Not yet ported: ``load_exported`` (the symbol/export
+slice).
 
 Quickstart::
 
@@ -119,6 +121,7 @@ class ModelServer:
         # and the set of names that were EVER loaded (so result() can tell
         # "model torn down mid-flight" from a caller's typo'd name)
         self._entries = {}
+        self._engines = {}          # attached decode engines, by name
         self._closed = False
         self._ever_loaded = set()
 
@@ -153,6 +156,10 @@ class ModelServer:
                 raise MXNetError("server is stopped; create a new "
                                  "ModelServer")
             duplicate = name in self._entries
+            engine_clash = name in self._engines
+        if engine_clash:
+            # models and engines share one health/stats namespace
+            raise MXNetError("name %r is already an attached engine" % name)
         if duplicate:
             # cheap early duplicate check so a name collision fails before
             # the model move + whole-bucket-menu warmup; the
@@ -208,6 +215,41 @@ class ModelServer:
         self._entry(name).batcher.resume()
 
     # -- inference ------------------------------------------------------
+    # -- decode engines ---------------------------------------------------
+    def attach_engine(self, engine):
+        """Register a decode engine (serving/decode) on this server's
+        observability surface, under its ``engine.name``.
+
+        The engine keeps its own request API and worker thread; attaching
+        makes its DecodeStats/breaker report through the same
+        ``stats()``/``health()`` surface as the batched models, and
+        ``stop()`` tears it down with the rest of the server.  Names are
+        one namespace: an engine cannot shadow a loaded model."""
+        name = engine.name
+        with self._lifecycle_lock:
+            if self._closed:
+                raise MXNetError("server is stopped; create a new "
+                                 "ModelServer")
+            if name in self._engines:
+                raise MXNetError("engine %r is already attached" % name)
+            if name in self._entries:
+                raise MXNetError("name %r is already a loaded model" % name)
+            self._engines[name] = engine
+        return engine
+
+    def detach_engine(self, name):
+        """Unregister (but do NOT stop) an attached engine; returns it."""
+        with self._lifecycle_lock:
+            try:
+                return self._engines.pop(name)
+            except KeyError:
+                raise MXNetError("no engine %r attached; attached: %s"
+                                 % (name, sorted(self._engines) or "none"))
+
+    def engines(self):
+        with self._lifecycle_lock:
+            return sorted(self._engines)
+
     def predict_async(self, name, data, timeout_ms=None):
         """Submit one request; returns a Request handle (``wait()`` then
         read status/outputs) or an InferenceResult for immediate
@@ -341,7 +383,9 @@ class ModelServer:
     # -- observability --------------------------------------------------
     def stats(self):
         """Snapshot: per-model counters + warmup report + health/breaker
-        state (health.py)."""
+        state (health.py), plus one ``engines`` section per attached
+        decode engine (its full DecodeStats snapshot) so decode traffic
+        reports through the same surface."""
         models = {}
         for name in self._registry.names():
             try:
@@ -360,19 +404,35 @@ class ModelServer:
             # convenience alias; the breaker snapshot is the single source
             snap["breaker_opens"] = snap["breaker"]["opens"]
             models[name] = snap
-        return {"uptime_s": time.time() - self._t_start, "models": models}
+        with self._lifecycle_lock:
+            engines = dict(self._engines)
+        engine_snaps = {name: eng.stats_snapshot()
+                        for name, eng in engines.items()}
+        return {"uptime_s": time.time() - self._t_start, "models": models,
+                "engines": engine_snaps}
 
     def health(self, name):
-        """HEALTHY / DEGRADED / UNAVAILABLE for one model."""
-        return self._entry(name).model.breaker.health()
+        """HEALTHY / DEGRADED / UNAVAILABLE for one model or attached
+        engine (models and engines share the name namespace)."""
+        try:
+            return self._entry(name).model.breaker.health()
+        except MXNetError:
+            with self._lifecycle_lock:
+                engine = self._engines.get(name)
+            if engine is not None:
+                return engine.health()
+            raise
 
     # -- lifecycle ------------------------------------------------------
     def stop(self):
         with self._lifecycle_lock:
             self._closed = True
             names = list(self._entries)
+            engines = [self._engines.pop(n) for n in list(self._engines)]
         for name in names:
             self.unload(name)
+        for engine in engines:
+            engine.stop()
 
     def __enter__(self):
         return self

@@ -1,16 +1,18 @@
 """Serving observability: per-model counters + latency percentiles.
 
 Counterpart of ``mxnet_tpu/serving/stats.py`` (``LatencyWindow`` and
-``ModelStats``).  Every event updates plain numeric fields read by
-``ModelServer.stats()`` under a lock.  The JAX package also mirrors them
-into profiler counters; that waits for the port of the profiler, and the
-decode-stream helpers wait for the decode slice.
+``ModelStats``, and the decode-stream helpers ``stream_tpot_ms`` and
+``goodput_under_slo``).  Every event updates plain numeric fields read by
+``ModelServer.stats()`` under a lock.  The JAX package also mirrors the
+batched model's fields into profiler counters; the port does not yet
+(the decode engine's counters do mirror, ``serving/decode/stats.py``).
 """
 from __future__ import annotations
 
 import threading
 
-__all__ = ["ModelStats", "LatencyWindow"]
+__all__ = ["ModelStats", "LatencyWindow", "stream_tpot_ms",
+           "goodput_under_slo"]
 
 
 class LatencyWindow:
@@ -38,6 +40,71 @@ class LatencyWindow:
             idx = min(len(ordered) - 1, int(round(p / 100.0 * (len(ordered) - 1))))
             out["p%d" % p] = ordered[idx]
         return out
+
+
+def stream_tpot_ms(latency_ms, ttft_ms, tokens):
+    """Time-per-output-token of one finished stream: the decode-phase
+    latency (total minus time-to-first-token) spread over the tokens
+    after the first.  None when the stream has fewer than two tokens or
+    is missing either timestamp — a one-token stream has no decode phase
+    to measure."""
+    if tokens is None or int(tokens) < 2:
+        return None
+    if latency_ms is None or ttft_ms is None:
+        return None
+    return max(0.0, float(latency_ms) - float(ttft_ms)) / (int(tokens) - 1)
+
+
+def goodput_under_slo(rows, slo_ttft_ms=None, slo_tpot_ms=None):
+    """Goodput accounting over finished streams: how many completed OK
+    *and* met every configured latency SLO.
+
+    ``rows`` is an iterable of per-stream dicts with keys ``status``
+    (the server.py vocabulary), ``ttft_ms``, ``latency_ms`` and
+    ``tokens`` (count).  A ``None`` SLO is unchecked.  Returns::
+
+        {"total": all rows, "ok": OK rows, "good": OK rows within SLO,
+         "ttft_violations": OK rows past slo_ttft_ms,
+         "tpot_violations": OK rows past slo_tpot_ms,
+         "ttft_ms": {"p50": ..., "p99": ...},   # over OK rows
+         "tpot_ms": {"p50": ..., "p99": ...}}   # over OK rows with >= 2 tokens
+
+    The rate (goodput per second) is the caller's division: only the
+    bench knows the open-loop window the rows arrived in."""
+    total = ok = good = ttft_bad = tpot_bad = 0
+    ttft_w, tpot_w = LatencyWindow(), LatencyWindow()
+    for row in rows:
+        total += 1
+        if row.get("status") != "OK":
+            continue
+        ok += 1
+        ttft = row.get("ttft_ms")
+        tpot = stream_tpot_ms(row.get("latency_ms"), ttft,
+                              row.get("tokens"))
+        if ttft is not None:
+            ttft_w.add(float(ttft))
+        if tpot is not None:
+            tpot_w.add(tpot)
+        meets = True
+        if slo_ttft_ms is not None and (ttft is None
+                                        or ttft > slo_ttft_ms):
+            ttft_bad += 1
+            meets = False
+        if slo_tpot_ms is not None and tpot is not None \
+                and tpot > slo_tpot_ms:
+            tpot_bad += 1
+            meets = False
+        if meets:
+            good += 1
+    return {
+        "total": total,
+        "ok": ok,
+        "good": good,
+        "ttft_violations": ttft_bad,
+        "tpot_violations": tpot_bad,
+        "ttft_ms": ttft_w.percentiles(ps=(50, 99)),
+        "tpot_ms": tpot_w.percentiles(ps=(50, 99)),
+    }
 
 
 class ModelStats:

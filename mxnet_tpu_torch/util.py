@@ -1,9 +1,9 @@
 """Transient-retry envelope (counterpart of ``mxnet_tpu/util.py:49``).
 
-The serving registry wraps each batch execution in :func:`retry`, so that a
-transient failure costs latency instead of a failed batch.  The JAX
-package's default retryable class is ``faults.TransientFault``; until the
-fault-injection module is ported, :class:`TransientFault` lives here.
+The serving registry and the decode engine wrap each execution in
+:func:`retry`, so that a transient failure costs latency instead of a
+failed batch.  The retryable class is ``faults.TransientFault``, re-exported
+here as the JAX package's ``util`` does.
 """
 from __future__ import annotations
 
@@ -11,17 +11,13 @@ import functools
 import random as _random
 import time as _time
 
-from .base import MXNetError
+from .faults import TransientFault
 
 __all__ = ["TransientFault", "retry"]
 
 # instance RNG (not the global random module): jitter draws must not
 # perturb seeded streams
 _JITTER_RNG = _random.Random(0x5EED)
-
-
-class TransientFault(MXNetError):
-    """A retryable failure (flaky transfer, worker blip)."""
 
 
 def retry(attempts=3, backoff=0.01, jitter=0.5, on_retry=None):

@@ -116,6 +116,15 @@ with autograd.record():
     y = nd.FullyConnected(x, nd.ones((4, 3), ctx="cpu"), no_bias=True).sum()
 y.backward()
 assert x.grad.asnumpy().tolist() == [[4.0] * 3] * 2
+# the decode engine, with the runtime modules it loads
+from mxnet_tpu_torch import faults, memory_accounting, profiler
+from mxnet_tpu_torch.serving.decode import DecodeEngine, TinyCausalLM
+engine = DecodeEngine(TinyCausalLM(vocab_size=16, hidden=16, num_layers=1,
+                                   max_len=32, device="cpu"),
+                      max_slots=2, block_size=4, max_prompt_len=4,
+                      max_new_tokens=4, warmup=False)
+assert engine.generate([1, 2], max_new_tokens=3).status == "OK"
+engine.stop()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes"))
 print("FORBIDDEN", bad)
