@@ -143,6 +143,16 @@ DEC_DRAFT_LAYERS = 2
 # CPU fp32 run's own distance from an fp64 run
 DEC_VS_CPU = (2, 4)
 DEC_FP64_FACTOR = 4.0
+# the saved-model phases: the exported ResNet's batch ladder and its
+# requests (one at a time, so each is a batch of 1); the exported decode
+# model (TinyGluonLM at the bench widths, depth cut), its engine and its
+# greedy traffic (streams, prompt lengths, new tokens)
+EXP_RESNET_LADDER = (1, 2, 4, 8, 16, 32)
+EXP_RESNET_REQUESTS = 8
+EXP_DEC_LAYERS = 2
+EXP_DEC_ENGINE = dict(max_slots=8, block_size=16, max_prompt_len=128,
+                      max_new_tokens=32, max_queue=64)
+EXP_DEC_TRAFFIC = (16, (8, 128), (8, 32))
 
 # published peaks by card (NVIDIA data sheets, dense): fp32 on CUDA cores,
 # TF32 and bf16 on tensor cores in FLOP/s, memory bandwidth in bytes/s
@@ -397,6 +407,42 @@ def check_kernel(cuda_ops, dev):
             "bound_ms_bf16": bound_ms_bf16, "bound_by_bf16": bound_by_bf16}
 
 
+def lm_requests():
+    """The served LM's traffic: (tokens, positions) pairs, 12 short and 6
+    long, interleaved, from a seed."""
+    rng = np.random.RandomState(0)
+    requests = []
+    for i in range(18):
+        T = SERVE_LENGTHS[1] if i % 3 == 2 else SERVE_LENGTHS[0]
+        requests.append((rng.randint(0, VOCAB, T).astype(np.int32),
+                         np.arange(T, dtype=np.int32)))
+    return requests
+
+
+def serve_concurrently(server, name, requests, clients=4):
+    """Every request through ``server.predict`` from ``clients`` threads
+    at once.  Returns the results in request order and the wall
+    seconds."""
+    results = [None] * len(requests)
+
+    def client(worker):
+        for i in range(worker, len(requests), clients):
+            results[i] = server.predict(name, requests[i],
+                                        timeout_ms=120000)
+
+    threads = [threading.Thread(target=client, args=(w,))
+               for w in range(clients)]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.time() - t0
+    if any(t.is_alive() for t in threads):
+        fail("%s: client threads did not finish" % name)
+    return results, wall
+
+
 def serve(cuda_ops, dev, card):
     """Phase 3: the full-width LM served through ModelServer on the card."""
     from mxnet_tpu_torch import serving
@@ -407,13 +453,7 @@ def serve(cuda_ops, dev, card):
     n_params = sum(p.numel() for p in net.parameters())
     phase("model", params=n_params, build_s=round(time.time() - t0, 2))
 
-    rng = np.random.RandomState(0)
-    requests = []   # (tokens, positions): 12 short and 6 long, interleaved
-    for i in range(18):
-        T = SERVE_LENGTHS[1] if i % 3 == 2 else SERVE_LENGTHS[0]
-        requests.append((rng.randint(0, VOCAB, T).astype(np.int32),
-                         np.arange(T, dtype=np.int32)))
-
+    requests = lm_requests()
     server = serving.ModelServer()
     reset_launches(cuda_ops)
     try:
@@ -425,21 +465,7 @@ def serve(cuda_ops, dev, card):
         warm = model.warmup_report
         phase("warmup", signatures=warm["signatures"],
               seconds=round(time.time() - t0, 2))
-        results = [None] * len(requests)
-
-        def client(worker):
-            for i in range(worker, len(requests), 4):
-                results[i] = server.predict("lm", requests[i],
-                                            timeout_ms=120000)
-
-        threads = [threading.Thread(target=client, args=(w,))
-                   for w in range(4)]
-        t0 = time.time()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        wall = time.time() - t0
+        results, wall = serve_concurrently(server, "lm", requests)
         snap = server.stats()["models"]["lm"]
         # one padded batch of short requests (rung 4) straight through the
         # registry's graph, to hold against the eager block below
@@ -459,8 +485,6 @@ def serve(cuda_ops, dev, card):
         server.stop()
     if cuda_ops.flash_attention.launches != eager_launches:
         fail("serve: a graph replay called the kernel's wrapper")
-    if any(t.is_alive() for t in threads):
-        fail("client threads did not finish")
     statuses = [r.status for r in results]
     if statuses.count(serving.OK) != len(requests):
         fail("not every request OK: %s" % [(r.status, r.error)
@@ -1543,6 +1567,12 @@ def nd_cases():
         ("batch_dot", [heads.reshape(-1, T, DIM // HEADS),
                        heads.reshape(-1, T, DIM // HEADS)],
          {"transpose_b": True}, [0, 1], gemm),
+        # TinyGluonLM's positions: the table cut to a (T, B, H) batch
+        ("slice_like", [f(MAX_LEN, DIM), np.ascontiguousarray(
+            act.transpose(1, 0, 2))], {"axes": (0,)}, [0], elem),
+        ("_zeros", [], {"shape": (Bt, T, DIM)}, [], elem),
+        ("_ones", [], {"shape": (B, C4)}, [], elem),
+        ("_arange", [], {"start": 0, "stop": MAX_LEN}, [], elem),
     ]
     near_one = f(Bt, T, DIM, low=0.9, high=1.1)   # a product stays finite
     for n in ("sum", "mean", "prod", "nansum", "nanprod", "max", "min"):
@@ -1576,6 +1606,9 @@ def nd_cases():
         ("LayerNorm", [act, f(DIM, low=0.5, high=1.5), f(DIM)], {},
          [0, 1, 2], gemm),
         ("Activation", [wide], {"act_type": "relu"}, [0], elem),
+        ("LeakyReLU", [act], {"act_type": "gelu"}, [0], elem),
+        ("LeakyReLU", [img, f(C, low=0.1, high=0.5)],
+         {"act_type": "prelu"}, [0, 1], gemm),
         ("softmax", [logits], {}, [0], gemm),
         ("log_softmax", [logits], {}, [0], gemm),
         ("SoftmaxOutput", [f(B, 1000), rng.randint(0, 1000, B).astype(
@@ -1603,14 +1636,16 @@ def nd_cases():
 def nd_run(name, inputs, attrs, grads, device, seed):
     """``nd.<name>`` on ``device``: its outputs and the gradients of the
     inputs at ``grads`` under head gradients drawn from ``seed``, on the
-    CPU.  ``_training`` in ``attrs`` records in training mode."""
+    CPU.  ``_training`` in ``attrs`` records in training mode.  The call
+    runs in ``device``'s scope, where a creator (an op of no input) makes
+    its array."""
     import mxnet_tpu_torch as mx
 
     arrays = [mx.nd.array(a, ctx=device, dtype=a.dtype) for a in inputs]
     for i in grads:
         arrays[i].attach_grad()
     training = attrs.pop("_training", False)
-    with mx.autograd.record(train_mode=training):
+    with mx.autograd.record(train_mode=training), torch.device(device):
         out = getattr(mx.nd, name)(*arrays, **attrs)
     outs = out if isinstance(out, list) else [out]
     if name == "BatchNorm":
@@ -2209,17 +2244,25 @@ MNIST_PREDICT_ATOL = 1e-5
 
 
 def device_profile(fn):
-    """(device ms, {kernel name: launches}) of ``fn()`` under
-    torch.profiler: the kernels and copies on the device timeline."""
-    from torch.profiler import ProfilerActivity, profile
+    """(device ms, {kernel name: launches}) of one call of ``fn()`` under
+    torch.profiler: the kernels and copies on the device timeline.  ``fn``
+    runs twice, the first call the profiler's warm-up cycle, whose events
+    are dropped: as tracing starts, the trace can miss a graph replay's
+    first kernel (one run saw 11 of a replay's 12 attention kernels)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    traces = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traces.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     cpu = torch.autograd.DeviceType.CPU
-    kernels = [e for e in prof.key_averages() if e.device_type != cpu]
+    kernels = [e for e in traces[0] if e.device_type != cpu]
     return (sum(e.self_device_time_total for e in kernels) / 1e3,
             {e.key: e.count for e in kernels})
 
@@ -3172,6 +3215,297 @@ def decode_phases(cuda_ops, dev, card):
     return launches
 
 
+def beyond_bound(got, want):
+    """(max abs difference, whether any element lies beyond the JAX
+    hybridize bound)."""
+    return (float(np.abs(got - want).max()),
+            not np.allclose(got, want, rtol=HYBRID_RTOL, atol=HYBRID_ATOL))
+
+
+def file_sizes(prefix):
+    import os
+    return {ext: os.path.getsize(prefix + ext)
+            for ext in ("-symbol.json", "-0000.params")}
+
+
+def exported_serve(cuda_ops, dev, card, workdir):
+    """Phase: the full-width LM served from its saved files.  The LM built
+    as ``serve`` builds it is traced over ``sym.var("data")`` and
+    ``sym.var("pos_idx")``, its graph and ``.params`` written, and
+    ``ModelServer.load_exported`` serves ``serve``'s 18 requests on the
+    same ladder.  Every answer is OK and within the JAX hybridize bound of
+    the native block's for the same request, and torch.profiler sees the
+    kernel once a layer in one replay at each length: the imported graph
+    runs ``_contrib_flash_attention`` in the hand kernel, inside the
+    registry's CUDA graph.  Returns the kernel's launches here."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch import symbol as sym
+
+    net = new_lm(dev, DEPTH, 0)
+    prefix = str(workdir / "lm")
+    t0 = time.time()
+    net(sym.var("data"), sym.var("pos_idx")).save(prefix + "-symbol.json")
+    net.collect_params().save(prefix + "-0000.params")
+    save_s = time.time() - t0
+    requests = lm_requests()
+    with torch.inference_mode():
+        native = [net(*(torch.from_numpy(a)[None].to(dev) for a in r))[0]
+                  .cpu().numpy() for r in requests]
+    short = [r for r in requests if len(r[0]) == SERVE_LENGTHS[0]][:4]
+    arrays = [np.stack([r[j] for r in short]) for j in range(2)]
+    with torch.inference_mode():
+        native_batch = net(*(torch.from_numpy(a).to(dev)
+                             for a in arrays)).cpu().numpy()
+    del net
+    server = serving.ModelServer()
+    reset_launches(cuda_ops)
+    try:
+        t0 = time.time()
+        model = server.load_exported(
+            "lm", prefix, input_names=("data", "pos_idx"),
+            input_shapes=[((T,), (T,)) for T in SERVE_LENGTHS],
+            dtype=("int32", "int32"), batch_ladder=list(LADDER),
+            linger_ms=20.0, max_queue=64, device=dev, warmup=False)
+        import_s = time.time() - t0
+        t0 = time.time()
+        warm = model.warmup()
+        warmup_s = time.time() - t0
+        results, wall = serve_concurrently(server, "lm", requests)
+        snap = server.stats()["models"]["lm"]
+        graphed = model.execute(arrays)[0]
+        cache, caps = model.cache_stats(), model.capture_stats()
+        eager_launches = cuda_ops.flash_attention.launches
+        per_replay = {}
+        for T in SERVE_LENGTHS:
+            batch = [np.zeros((1, T), np.int32)] * 2
+            per_replay[T] = kernel_count(device_profile(
+                lambda: model.execute(batch))[1])
+    finally:
+        server.stop()
+    if cuda_ops.flash_attention.launches != eager_launches:
+        fail("exported_serve: a graph replay called the kernel's wrapper")
+    bad = [(i, r.status, r.error) for i, r in enumerate(results)
+           if r.status != serving.OK]
+    if bad:
+        fail("exported_serve: requests not OK: %s" % bad)
+    worst = 0.0
+    for i, (r, want) in enumerate(zip(results, native)):
+        if r.output.shape != want.shape or not np.isfinite(r.output).all():
+            fail("exported_serve: bad logits %s for request %d"
+                 % (r.output.shape, i))
+        err, beyond = beyond_bound(r.output, want)
+        worst = max(worst, err)
+        if beyond:
+            fail("exported_serve: request %d's logits lie beyond the "
+                 "hybridize bound of the native block's: max abs %.3g"
+                 % (i, err))
+    batch_err, beyond = beyond_bound(graphed, native_batch)
+    if beyond:
+        fail("exported_serve: a padded batch lies beyond the bound of the "
+             "native block on the same batch: max abs %.3g" % batch_err)
+    sigs = len(SERVE_LENGTHS) * len(LADDER)
+    if warm["signatures"] != sigs or caps["captures"] != sigs or \
+            cache["misses"] != warm["cache"]["misses"]:
+        fail("exported_serve: %s captures for %d signatures, %s misses "
+             "after warmup's %s" % (caps["captures"], sigs,
+                                    cache["misses"], warm["cache"]))
+    batches = warm["signatures"] + snap["batches"] + 1
+    if caps["replays"] != batches:
+        fail("exported_serve: %d graph replays for %d batches"
+             % (caps["replays"], batches))
+    if eager_launches != DEPTH * caps["eager_runs"]:
+        fail("exported_serve: %d eager launches, not %d layers x %d "
+             "warm-up runs" % (eager_launches, DEPTH, caps["eager_runs"]))
+    if set(per_replay.values()) != {DEPTH}:
+        fail("exported_serve: the profiler saw the kernel %s times in one "
+             "replay (by length), not %d" % (per_replay, DEPTH))
+    launches = eager_launches + caps["replays"] * DEPTH
+    lat = sorted(r.latency_ms for r in results)
+    tokens = sum(len(tok) for tok, _ in requests)
+    phase("exported_serve_files", save_s=save_s, import_s=import_s,
+          warmup_s=warmup_s, signatures=warm["signatures"],
+          bytes=json.dumps(file_sizes(prefix)), card='"%s"' % card)
+    phase("exported_serve", requests=len(requests), ok=len(results),
+          batches=snap["batches"], avg_batch=snap["avg_batch"],
+          launches=launches, eager_warmup_runs=caps["eager_runs"],
+          replays=caps["replays"],
+          profiler_kernel_launches_per_replay=json.dumps(per_replay),
+          max_abs_err_vs_native=worst, batch_max_abs_err=batch_err,
+          batch_bitwise=bool(np.array_equal(graphed, native_batch)),
+          rtol=HYBRID_RTOL, atol=HYBRID_ATOL,
+          p50_ms=float(np.percentile(lat, 50)),
+          p99_ms=float(np.percentile(lat, 99)), tokens=tokens,
+          tokens_per_s=tokens / wall, card='"%s"' % card)
+    return launches
+
+
+def exported_resnet(cuda_ops, dev, card, workdir):
+    """Phase: resnet50_v1 at 224 x 224, NCHW, fp32, ``export``ed and
+    served by ``load_exported`` on a ladder up to batch 32: requests one
+    at a time and a full batch of 32, each within the hybridize bound of
+    the native block on the same batch; no flash_attention launch."""
+    from mxnet_tpu_torch import serving
+
+    net = new_resnet(dev, 0)
+    prefix = str(workdir / "resnet50_v1")
+    t0 = time.time()
+    net.export(prefix)
+    save_s = time.time() - t0
+    rng = np.random.RandomState(5)
+    side = RESNET_SIZE
+    images = [rng.normal(0, 1, (3, side, side)).astype(np.float32)
+              for _ in range(EXP_RESNET_REQUESTS)]
+    full = rng.normal(0, 1, (EXP_RESNET_LADDER[-1], 3, side, side)).astype(
+        np.float32)
+    with torch.inference_mode():
+        native = [net(torch.from_numpy(x)[None].to(dev))[0].cpu().numpy()
+                  for x in images]
+        native_full = net(torch.from_numpy(full).to(dev)).cpu().numpy()
+    del net
+    reset_launches(cuda_ops)
+    server = serving.ModelServer()
+    try:
+        t0 = time.time()
+        model = server.load_exported(
+            "resnet50_v1", prefix, input_shapes=[(3, side, side)],
+            batch_ladder=list(EXP_RESNET_LADDER), device=dev, warmup=False)
+        import_s = time.time() - t0
+        t0 = time.time()
+        warm = model.warmup()
+        warmup_s = time.time() - t0
+        t0 = time.time()
+        results = [server.predict("resnet50_v1", x, timeout_ms=120000)
+                   for x in images]
+        wall = time.time() - t0
+        graphed = model.execute([full])[0]
+        caps = model.capture_stats()
+        per_replay = kernel_count(device_profile(
+            lambda: model.execute([full[:1]]))[1])
+    finally:
+        server.stop()
+    if cuda_ops.flash_attention.launches or per_replay:
+        fail("exported_resnet launched flash_attention")
+    bad = [(i, r.status, r.error) for i, r in enumerate(results)
+           if r.status != serving.OK]
+    if bad:
+        fail("exported_resnet: requests not OK: %s" % bad)
+    worst = 0.0
+    for i, (r, want) in enumerate(zip(results, native)):
+        err, beyond = beyond_bound(r.output, want)
+        worst = max(worst, err)
+        if beyond or r.output.shape != (1000,):
+            fail("exported_resnet: request %d beyond the bound of the "
+                 "native block: max abs %.3g" % (i, err))
+    full_err, beyond = beyond_bound(graphed, native_full)
+    if beyond:
+        fail("exported_resnet: the batch of %d beyond the bound of the "
+             "native block: max abs %.3g" % (len(full), full_err))
+    if caps["captures"] != len(EXP_RESNET_LADDER):
+        fail("exported_resnet: %d captures for %d rungs"
+             % (caps["captures"], len(EXP_RESNET_LADDER)))
+    lat = sorted(r.latency_ms for r in results)
+    phase("exported_resnet", network="resnet50_v1", image=(3, side, side),
+          ladder=list(EXP_RESNET_LADDER), save_s=save_s, import_s=import_s,
+          warmup_s=warmup_s, captures=caps["captures"],
+          bytes=json.dumps(file_sizes(prefix)), requests=len(results),
+          ok=len(results), max_abs_err_vs_native=worst,
+          batch=len(full), batch_max_abs_err=full_err,
+          batch_bitwise=bool(np.array_equal(graphed, native_full)),
+          p50_ms=float(np.percentile(lat, 50)),
+          p99_ms=float(np.percentile(lat, 99)),
+          images_per_s=len(results) / wall, flash_attention_launches=0,
+          card='"%s"' % card)
+
+
+def exported_decode(cuda_ops, dev, card, workdir):
+    """Phase: TinyGluonLM at the bench LM's widths (depth cut to
+    EXP_DEC_LAYERS), ``export``ed and imported by ``SymbolBlock.imports``,
+    served through ``GluonCausalLMAdapter`` and the decode engine: its
+    greedy streams are token-identical to the same adapter over the native
+    block, with no capture after warmup and no block leaked.  The imported
+    graph itself runs too: called twice on one token batch on the card
+    (one capture in the block's CachedOp, two replays), its logits lie
+    within the hybridize bound of the native block's."""
+    from mxnet_tpu_torch.gluon.block import SymbolBlock
+    from mxnet_tpu_torch.serving.decode import (DecodeEngine,
+                                                GluonCausalLMAdapter,
+                                                TinyCausalLM, TinyGluonLM)
+    from mxnet_tpu_torch.serving.decode.adapter import copy_reference_weights
+
+    kw = dict(DEC_MODEL, num_layers=EXP_DEC_LAYERS)
+    block = TinyGluonLM(device=dev, **kw)
+    copy_reference_weights(block, TinyCausalLM(seed=4, device=dev, **kw))
+    prefix = str(workdir / "tiny_gluon_lm")
+    block.export(prefix)
+    t0 = time.time()
+    imported = SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                   prefix + "-0000.params", ctx=dev)
+    import_s = time.time() - t0
+    batch = torch.from_numpy(np.random.RandomState(8).randint(
+        0, kw["vocab_size"], (4, EXP_DEC_ENGINE["max_prompt_len"]))
+        .astype(np.int32)).to(dev)
+    with torch.no_grad():
+        want = block(batch).cpu().numpy()
+        graph_out = [imported(batch).cpu().numpy() for _ in range(2)]
+    graph_caps = imported._cached_op.capture_stats()
+    if (graph_caps["captures"], graph_caps["replays"]) != (1, 2):
+        fail("exported_decode: the imported block's CachedOp made %s "
+             "captures and %s replays for two calls of one signature, not "
+             "1 and 2" % (graph_caps["captures"], graph_caps["replays"]))
+    graph_err = 0.0
+    for got in graph_out:
+        err, beyond = beyond_bound(got, want)
+        graph_err = max(graph_err, err)
+        if got.shape != want.shape or beyond:
+            fail("exported_decode: the imported graph's logits %s lie "
+                 "beyond the hybridize bound of the native block's %s: max "
+                 "abs %.3g" % (got.shape, want.shape, err))
+    prompts, budgets = decode_traffic(7, *EXP_DEC_TRAFFIC)
+    tokens, numbers = {}, {}
+    for key, source in (("native", block), ("imported", imported)):
+        t0 = time.time()
+        engine = DecodeEngine(GluonCausalLMAdapter(source, num_heads=HEADS),
+                              name="exported_decode_" + key, device=dev,
+                              **EXP_DEC_ENGINE)
+        try:
+            warm_caps, warm_misses = decode_warmup(
+                engine, "exported_decode_" + key, dev, t0)
+            streams, wall = decode_run(engine, prompts, budgets)
+            decode_checks(engine, "exported_decode_" + key, warm_caps,
+                          warm_misses)
+        finally:
+            engine.stop()
+        tokens[key] = [s.tokens() for s in streams]
+        numbers[key] = stream_numbers(streams, wall)
+    wrong = [i for i, (a, b) in enumerate(zip(tokens["native"],
+                                              tokens["imported"])) if a != b]
+    if wrong:
+        fail("exported_decode: %d streams differ between the native and "
+             "the imported block, first %d" % (len(wrong), wrong[0]))
+    if cuda_ops.flash_attention.launches:
+        fail("exported_decode launched flash_attention")
+    phase("exported_decode", layers=EXP_DEC_LAYERS, streams=len(prompts),
+          tokens_identical=True, import_s=import_s,
+          graph_batch=json.dumps(list(want.shape)),
+          graph_max_abs_err_vs_native=graph_err,
+          bytes=json.dumps(file_sizes(prefix)),
+          native=json.dumps(numbers["native"]),
+          imported=json.dumps(numbers["imported"]), card='"%s"' % card)
+
+
+def exported_phases(cuda_ops, dev, card):
+    """The saved-model phases, their files in a temporary directory;
+    returns the kernel's launches (``exported_serve``'s)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = exported_serve(cuda_ops, dev, card, Path(tmp))
+        exported_resnet(cuda_ops, dev, card, Path(tmp))
+        reset_launches(cuda_ops)
+        exported_decode(cuda_ops, dev, card, Path(tmp))
+    return launches
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -3247,20 +3581,22 @@ def main():
         fail("module_fit launched flash_attention")
 
     launches_decode = decode_phases(cuda_ops, dev, smi)
+    launches_exported = exported_phases(cuda_ops, dev, smi)
 
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
               "launches": launches_serve + launches_train
               + launches_train_bf16 + launches_nd + launches_functional
-              + launches_hybrid,
+              + launches_hybrid + launches_exported,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
               "launches_hybrid_train": launches_hybrid,
               "launches_train_bf16": launches_train_bf16,
               "launches_nd": launches_nd,
               "launches_functional": launches_functional,
-              "launches_decode": launches_decode}
+              "launches_decode": launches_decode,
+              "launches_exported": launches_exported}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

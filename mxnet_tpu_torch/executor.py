@@ -30,7 +30,7 @@ from .ndarray.ndarray import NDArray
 from .ops.nn_ops import BN_EPS_DEFAULT
 from .ops.registry import get_op
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "graph_function"]
 
 # ops whose training outputs (out, mean, invstd) fold into the aux inputs
 # [3] = moving_mean and [4] = moving_var
@@ -47,6 +47,67 @@ def _tensor(v, like):
         import numpy as np
         v = tensor_from_numpy(np.asarray(v))
     return v.to(like.device, like.dtype)
+
+
+def graph_function(symbol, arg_names, aux_names, is_train, device=None):
+    """``symbol``'s DAG as ``fn(arg_vals, aux_vals) -> [outputs]``, the
+    values tensors in ``arg_names``/``aux_names`` order, each op run by
+    its registered function in topological order (a kernel wrapper on
+    CUDA tensors launches its kernel).  An op with no inputs (``_zeros``,
+    ``_arange``) makes its output on the first value's device, or on
+    ``device`` in a graph of no arguments.  In
+    training, each BatchNorm node folds its batch statistics into its
+    moving-statistics aux tensors in place."""
+    nodes = symbol._topo_nodes()
+    arg_order = {n: i for i, n in enumerate(arg_names)}
+    aux_order = {n: i for i, n in enumerate(aux_names)}
+    plan = []
+    for n in nodes:
+        if n.op is None:
+            continue
+        op = get_op(n.op)
+        attrs = {k: v for k, v in n.attrs.items()
+                 if not k.startswith("__") and k != "ctx_group"}
+        if op.mode_for(attrs):
+            attrs["_training"] = is_train
+        fold = None
+        if is_train and n.op in _BN_AUX_OPS and len(n.inputs) >= 5 \
+                and not attrs.get("use_global_stats", False):
+            mm, mv = n.inputs[3][0].name, n.inputs[4][0].name
+            if mm in aux_order and mv in aux_order:
+                fold = (aux_order[mm], aux_order[mv],
+                        float(attrs.get("momentum", 0.9)),
+                        float(attrs.get("eps", BN_EPS_DEFAULT)))
+        plan.append((n, op, attrs, fold))
+
+    def fn(arg_vals, aux_vals):
+        env = {}
+        for n in nodes:
+            if n.op is None:
+                env[(id(n), 0)] = aux_vals[aux_order[n.name]] \
+                    if n.attrs.get("__is_aux__") \
+                    else arg_vals[arg_order[n.name]]
+        for n, op, attrs, fold in plan:
+            in_vals = [env[(id(inp), idx)] for (inp, idx) in n.inputs]
+            if not in_vals:
+                first = list(arg_vals[:1]) + list(aux_vals[:1])
+                attrs = dict(attrs, _device=first[0].device if first
+                             else device)
+            out = op.apply(attrs, *in_vals)
+            outs = out if isinstance(out, (tuple, list)) else [out]
+            for i, o in enumerate(outs):
+                env[(id(n), i)] = o
+            if fold is not None:
+                mm, mv, m, eps = fold
+                with torch.no_grad():
+                    mean = outs[1].detach()
+                    var = outs[2].detach().square().reciprocal() - eps
+                    for i, batch in ((mm, mean), (mv, var)):
+                        a = aux_vals[i]
+                        a.copy_(a * m + batch * (1 - m))
+        return [env[(id(n), idx)] for (n, idx) in symbol._entries]
+
+    return fn
 
 
 def write_into(dst, src):
@@ -117,59 +178,13 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _build_fn(self, is_train):
-        """The DAG as ``fn(arg_vals, aux_vals) -> outputs`` (tensors, in
-        ``arg_names``/``aux_names`` order).  In training, BatchNorm nodes
-        fold their batch statistics into the aux tensors in place."""
+        """The DAG as ``fn(arg_vals, aux_vals) -> outputs``
+        (:func:`graph_function`), made once per mode."""
         fn = self._fns.get(is_train)
-        if fn is not None:
-            return fn
-        sym = self._symbol
-        nodes = sym._topo_nodes()
-        arg_order = {n: i for i, n in enumerate(self.arg_names)}
-        aux_order = {n: i for i, n in enumerate(self.aux_names)}
-        plan = []
-        for n in nodes:
-            if n.op is None:
-                continue
-            op = get_op(n.op)
-            attrs = {k: v for k, v in n.attrs.items()
-                     if not k.startswith("__") and k != "ctx_group"}
-            if op.mode_for(attrs):
-                attrs["_training"] = is_train
-            fold = None
-            if is_train and n.op in _BN_AUX_OPS and len(n.inputs) >= 5 \
-                    and not attrs.get("use_global_stats", False):
-                mm, mv = n.inputs[3][0].name, n.inputs[4][0].name
-                if mm in aux_order and mv in aux_order:
-                    fold = (aux_order[mm], aux_order[mv],
-                            float(attrs.get("momentum", 0.9)),
-                            float(attrs.get("eps", BN_EPS_DEFAULT)))
-            plan.append((n, op, attrs, fold))
-
-        def fn(arg_vals, aux_vals):
-            env = {}
-            for n in nodes:
-                if n.op is None:
-                    env[(id(n), 0)] = aux_vals[aux_order[n.name]] \
-                        if n.attrs.get("__is_aux__") \
-                        else arg_vals[arg_order[n.name]]
-            for n, op, attrs, fold in plan:
-                in_vals = [env[(id(inp), idx)] for (inp, idx) in n.inputs]
-                out = op.apply(attrs, *in_vals)
-                outs = out if isinstance(out, (tuple, list)) else [out]
-                for i, o in enumerate(outs):
-                    env[(id(n), i)] = o
-                if fold is not None:
-                    mm, mv, m, eps = fold
-                    with torch.no_grad():
-                        mean = outs[1].detach()
-                        var = outs[2].detach().square().reciprocal() - eps
-                        for i, batch in ((mm, mean), (mv, var)):
-                            a = aux_vals[i]
-                            a.copy_(a * m + batch * (1 - m))
-            return [env[(id(n), idx)] for (n, idx) in sym._entries]
-
-        self._fns[is_train] = fn
+        if fn is None:
+            fn = self._fns[is_train] = graph_function(
+                self._symbol, self.arg_names, self.aux_names, is_train,
+                self._ctx)
         return fn
 
     def _cached_op(self, is_train):

@@ -27,8 +27,21 @@ through one ``cached_op.CachedOp`` (:func:`build_cached_op`, the one place
 that decides which parameters are aux): captured into a CUDA graph per
 input signature on the card, run eagerly on the CPU.  Inside a cached
 forward the children run eagerly, so the outermost active block owns the
-graph.  ``export`` and ``SymbolBlock`` are not ported yet: they need the
-layers to trace into ``sym.*``.
+graph.
+
+Symbols (:31-57, :378-460): a :class:`HybridBlock` called with a
+``Symbol`` builds a graph instead of computing: ``_build_symbol`` runs the
+layer's ``hybrid_forward(F, x, *args, **params)`` with ``F`` the port's
+``symbol`` module and each parameter's ``var()``, inside a
+:class:`_TraceNames` scope of the block's prefix, so the nodes get the JAX
+package's names (a block with no parameters of its own traces its
+``forward``).  The eager and captured paths keep their torch
+``forward``.  ``HybridBlock.export`` writes ``-symbol.json`` and
+``.params`` from one traced input, ``data`` (:430-444), and
+:class:`SymbolBlock` runs such a graph (:462-533) op by op, hybridized
+from the start: its own CachedOp captures a CUDA graph per input
+signature on the card, and inside an enclosing cached forward the ops run
+in that capture.
 
 The functional API (:562-630): :func:`functional_call`,
 :func:`param_values`, :func:`split_param_names` and
@@ -40,17 +53,50 @@ from __future__ import annotations
 import re
 import threading
 
+import torch
 from torch import nn
 
 from .. import autograd
 from .. import random as _random
-from ..base import as_dtype
+from ..base import MXNetError, as_dtype
+from ..context import resolve_device
+from ..name import NameManager, Prefix
 from ..ndarray.ndarray import NDArray
+from ..symbol.symbol import Symbol
 from . import parameter
-from .parameter import Parameter, ParameterDict
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "build_cached_op", "functional_call",
-           "param_values", "split_param_names"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "build_cached_op",
+           "functional_call", "param_values", "split_param_names"]
+
+
+class _TraceNames(Prefix):
+    """A prefix name manager that keeps node names unique across one
+    symbolic trace (``mxnet_tpu/gluon/block.py:31-57``).  Sibling blocks
+    may share a prefix (``prefix=""`` children), and layers name their
+    nodes with fixed hints such as ``fwd``: a later duplicate gets
+    ``_1``, ``_2``, ..."""
+
+    def __init__(self, prefix, seen):
+        super().__init__(prefix)
+        self._seen = seen
+
+    @classmethod
+    def nested(cls, prefix):
+        """A manager for ``prefix`` sharing the enclosing trace's names."""
+        current = getattr(NameManager._current, "value", None)
+        seen = current._seen if isinstance(current, cls) else set()
+        return cls(prefix, seen)
+
+    def get(self, name, hint):
+        base = super().get(name, hint)
+        unique = base
+        suffix = 0
+        while unique in self._seen:
+            suffix += 1
+            unique = "%s_%d" % (base, suffix)
+        self._seen.add(unique)
+        return unique
 
 
 class _BlockScope:
@@ -375,6 +421,8 @@ class HybridBlock(Block):
         return Block.__call__(self, *args, **kwargs)
 
     def __call__(self, *args, **kwargs):
+        if args and isinstance(args[0], Symbol):
+            return self._build_symbol(*args)
         if not self._active or kwargs or _in_cached_forward():
             return Block.__call__(self, *args, **kwargs)
         if self._cached_op is None:
@@ -386,6 +434,139 @@ class HybridBlock(Block):
                 return out
             self._build_cache()
         return self._cached_op(self._cached_param_vals, *args)
+
+    def hybrid_forward(self, F, *inputs, **params):
+        """The layer as a function of ``F`` (the port's ``symbol`` module)
+        and its parameters' variables, as the JAX layer writes it.  The
+        default serves a block with no parameters of its own whose
+        ``forward`` only calls its children and Symbol's operators (``+``):
+        that ``forward`` over the Symbols.  A layer that calls torch in
+        ``forward`` writes its own."""
+        if params:
+            raise NotImplementedError(
+                "%s has parameters of its own and no hybrid_forward"
+                % type(self).__name__)
+        return self.forward(*inputs)
+
+    def _build_symbol(self, *inputs):
+        """The graph of ``hybrid_forward`` over the Symbols ``inputs``,
+        with the parameters entering as their ``var()``s and the nodes
+        named in this block's prefix, unique across the trace."""
+        from .. import symbol as sym_mod
+        params = {k: v.var() for k, v in self._reg_params.items()}
+        with _TraceNames.nested(self._prefix):
+            return self.hybrid_forward(sym_mod, *inputs, **params)
+
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write ``path-symbol.json``, the graph traced from one input
+        named ``data``, and ``path-%04d.params``, every parameter under
+        ``arg:`` or, for the aux states, ``aux:`` and its full name.  A
+        model of several inputs is traced by calling it with one
+        ``sym.var`` each (``export`` traces one, as the JAX package's
+        does)."""
+        from .. import symbol as sym_mod
+        from ..ndarray import utils
+        out = self._build_symbol(sym_mod.var("data"))
+        if isinstance(out, (list, tuple)):
+            out = sym_mod.Group(list(out))
+        out.save("%s-symbol.json" % path)
+        arg_dict = {}
+        for name, param in self.collect_params().items():
+            kind = "aux:" if parameter._is_aux(name, param.grad_req) \
+                else "arg:"
+            arg_dict[kind + name] = param._reduce()
+        utils.save("%s-%04d.params" % (path, epoch), arg_dict)
+
+
+class SymbolBlock(HybridBlock):
+    """A saved graph as a block (``mxnet_tpu/gluon/block.py:462-533``).
+
+    Its parameters are the graph's arguments but ``inputs``, named as in
+    the graph (the prefix is ``""``), and its auxiliary states, with
+    ``grad_req='null'``; their tensors are made on ``device`` (default
+    ``cuda:0``) when loaded.  ``forward`` runs the graph's ops in order
+    (``executor.graph_function``, one per training mode).  The block
+    starts hybridized, so a call goes through its CachedOp: one CUDA graph
+    a signature on the card, dropped when a parameter changes storage, and
+    no capture a call.  Inside an enclosing cached forward (the serving
+    registry's) the ops run in that capture instead.  No gradient flows
+    to the parameters (the JAX block binds with ``grad_req='null'``)."""
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of ``symbol_file`` over the inputs
+        ``input_names``, its parameters loaded from ``param_file`` (keys
+        with or without ``arg:``/``aux:``) onto ``ctx`` (default
+        ``cuda:0``)."""
+        from .. import symbol as sym_mod
+        from ..ndarray import utils
+        sym = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        inputs = [sym_mod.var(i) for i in input_names]
+        ret = SymbolBlock(sym, inputs, device=ctx)
+        if param_file is not None:
+            loaded = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                      else k: v
+                      for k, v in utils.load_numpy(param_file).items()}
+            for name, param in ret.collect_params().items():
+                if name in loaded:
+                    param._load_init(loaded[name], ctx)
+        return ret
+
+    def __init__(self, outputs, inputs, params=None, device=None):
+        super().__init__(prefix=None, params=params)
+        # the graph's argument names are the parameters' names
+        self._prefix = ""
+        self._name = ""
+        self._params = ParameterDict("", params)
+        self._device = resolve_device(device)
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        if isinstance(outputs, (list, tuple)):
+            from .. import symbol as sym_mod
+            outputs = sym_mod.Group(list(outputs))
+        self._output_sym = outputs
+        self._input_names = [i.name for i in inputs]
+        self._arg_names = outputs.list_arguments()
+        self._aux_names = outputs.list_auxiliary_states()
+        for name in self._arg_names:
+            if name not in self._input_names:
+                self._own(self.params.get(name, allow_deferred_init=True))
+        for name in self._aux_names:
+            self._own(self.params.get(name, grad_req="null",
+                                      allow_deferred_init=True))
+        self._graph_fns = {}
+        self._active = True
+
+    def _own(self, param):
+        """Register ``param``'s tensor on this block (under its name)
+        unless another block holds it already."""
+        if param._owner is None:
+            param._attach(self, param.name, self._device)
+
+    def _param_tensors(self):
+        out = {}
+        for name, p in self.params.items():
+            try:
+                out[name] = p._check_and_get()
+            except (DeferredInitializationError, RuntimeError):
+                raise MXNetError("SymbolBlock parameter %s is not "
+                                 "initialized" % name)
+        return out
+
+    def forward(self, *args):
+        from ..executor import graph_function
+        training = autograd.is_training()
+        fn = self._graph_fns.get(training)
+        if fn is None:
+            fn = self._graph_fns[training] = graph_function(
+                self._output_sym, self._arg_names, self._aux_names, training)
+        values = {n: t.detach() for n, t in self._param_tensors().items()}
+        values.update(zip(self._input_names, args))
+        outs = fn([values[n] for n in self._arg_names],
+                  [values[n] for n in self._aux_names])
+        return outs[0] if len(outs) == 1 else outs
 
 
 def build_cached_op(block):

@@ -15,6 +15,9 @@ tensors are made; ``layout="NHWC"`` (or building inside
 W, C) images.  ``pretrained=<path>`` loads a local ``.params`` file
 (``model_store.load_pretrained``); ``pretrained=True`` raises, as in the
 JAX package: nothing is downloaded.
+
+Each block traces into ``sym.*`` as the JAX block does (``hybrid_forward``),
+so ``export`` writes its graph.
 """
 from __future__ import annotations
 
@@ -71,6 +74,13 @@ class BasicBlockV1(HybridBlock):
             residual = self.downsample(residual)
         return torch.relu(residual + out)
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        out = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(residual + out, act_type="relu")
+
 
 class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
@@ -107,6 +117,13 @@ class BottleneckV1(HybridBlock):
             residual = self.downsample(residual)
         return torch.relu(residual + out)
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        out = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(residual + out, act_type="relu")
+
 
 class BasicBlockV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
@@ -132,6 +149,15 @@ class BasicBlockV2(HybridBlock):
             residual = self.downsample(x)
         x = self.conv1(x)
         x = torch.relu(self.bn2(x))
+        return self.conv2(x) + residual
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
         return self.conv2(x) + residual
 
 
@@ -166,6 +192,17 @@ class BottleneckV2(HybridBlock):
         x = torch.relu(self.bn2(x))
         x = self.conv2(x)
         x = torch.relu(self.bn3(x))
+        return self.conv3(x) + residual
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        x = self.conv2(x)
+        x = F.Activation(self.bn3(x), act_type="relu")
         return self.conv3(x) + residual
 
 

@@ -25,5 +25,8 @@ class Activation(HybridBlock):
     def forward(self, x):
         return ACTIVATIONS[self._act_type](x)
 
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type, name="fwd")
+
     def extra_repr(self):
         return self._act_type

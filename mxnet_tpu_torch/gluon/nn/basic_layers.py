@@ -11,13 +11,16 @@ batch by the layer's ``_shape_hook`` (:129, :214, :303, :336), as Gluon
 does.  Tensors are made in fp32 on ``device`` (default ``cuda:0``) and
 filled by ``initialize`` (or a load); ``cast`` changes their dtype
 (``gluon.block.Block``).
+
+Each layer computes in torch (``forward``) and traces into ``sym.*``
+(``hybrid_forward(F, ...)``, for ``export``), writing the nodes,
+attributes and names the JAX layer writes.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ... import autograd
@@ -25,27 +28,27 @@ from ...base import as_dtype
 from ...context import resolve_device
 from ...ops.nn_ops import (batch_norm_output, batch_stats, fully_connected,
                            layer_norm)
+from ...ops.tensor_ops import embedding
 from ..block import HybridBlock
+from .activations import Activation
 
 __all__ = ["Dense", "Embedding", "LayerNorm", "BatchNorm", "Flatten",
            "HybridSequential"]
 
 
 class Dense(HybridBlock):
-    """y = act(x W^T + b); with ``flatten`` the input is (B, -1) first."""
+    """y = act(x W^T + b); with ``flatten`` the input is (B, -1) first.
+    ``activation`` is any ``Activation``'s, a child block named
+    ``<prefix><activation>_``, as in the JAX layer."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
                  bias_initializer="zeros", in_units=0, prefix=None,
                  params=None, device=None):
         super().__init__(prefix=prefix, params=params)
-        if activation not in (None, "relu"):
-            raise ValueError("Dense supports activation None or 'relu', got "
-                             "%r" % (activation,))
         self._device = resolve_device(device)
         self._flatten = flatten
         self._units = units
-        self._activation = activation
         with self.name_scope():
             self.weight = self.params.get("weight", shape=(units, in_units),
                                           init=weight_initializer,
@@ -58,6 +61,8 @@ class Dense(HybridBlock):
                                             allow_deferred_init=True)
             else:
                 self.bias = None
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
 
     def _shape_hook(self, x, *args):
         in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
@@ -65,12 +70,18 @@ class Dense(HybridBlock):
 
     def forward(self, x):
         y = fully_connected(x, self.weight, self.bias, self._flatten)
-        return F.relu(y) if self._activation == "relu" else y
+        return y if self.act is None else self.act(y)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        act = F.FullyConnected(x, weight, bias, no_bias=bias is None,
+                               num_hidden=self._units, flatten=self._flatten,
+                               name="fwd")
+        return act if self.act is None else self.act(act)
 
 
 class Embedding(HybridBlock):
-    """Row lookup in a ``[input_dim, output_dim]`` table (int32 or int64
-    indices)."""
+    """Row lookup in a ``[input_dim, output_dim]`` table; indices of any
+    dtype, floats too, as the op ``Embedding`` takes them."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, prefix=None, params=None,
@@ -83,36 +94,49 @@ class Embedding(HybridBlock):
                                           init=weight_initializer,
                                           dtype=dtype,
                                           allow_deferred_init=True)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype}
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return embedding(x, self.weight)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, name="fwd", **self._kwargs)
 
 
 class LayerNorm(HybridBlock):
-    """Normalise over the last axis with the biased variance, eps 1e-5."""
+    """Normalise over ``axis`` with the biased variance plus ``epsilon``.
+    ``scale=False`` (``center=False``) leaves gamma (beta) at its
+    initializer, without a gradient, as in the JAX layer."""
 
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
                  in_channels=0, prefix=None, params=None, device=None):
         super().__init__(prefix=prefix, params=params)
-        if axis != -1 or epsilon != 1e-5 or not (center and scale):
-            raise ValueError("LayerNorm is ported for axis=-1, epsilon=1e-5, "
-                             "center and scale only")
         self._device = resolve_device(device)
+        self._axis = axis
+        self._epsilon = epsilon
         with self.name_scope():
-            self.gamma = self.params.get("gamma", shape=(in_channels,),
-                                         init=gamma_initializer,
-                                         allow_deferred_init=True)
-            self.beta = self.params.get("beta", shape=(in_channels,),
-                                        init=beta_initializer,
-                                        allow_deferred_init=True)
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
 
     def _shape_hook(self, x, *args):
         for name in ("gamma", "beta"):
-            self._reg_params[name].shape = (x.shape[-1],)
+            self._reg_params[name].shape = (x.shape[self._axis],)
 
     def forward(self, x):
-        return layer_norm(x, self.gamma, self.beta)
+        return layer_norm(x, self.gamma, self.beta, self._axis,
+                          self._epsilon)
+
+    def hybrid_forward(self, F, data, gamma, beta):
+        return F.LayerNorm(data, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
 
 
 class BatchNorm(HybridBlock):
@@ -222,12 +246,24 @@ class BatchNorm(HybridBlock):
                                   self.running_var, self._eps)
         return y.movedim(1, axis)
 
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        # the op's mean and invstd outputs stay out of the graph's result;
+        # the running statistics are the graph's aux states
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           name="fwd", axis=self._axis, eps=self._eps,
+                           momentum=self._momentum,
+                           fix_gamma=self._fix_gamma,
+                           use_global_stats=self._use_global_stats)[0]
+
 
 class Flatten(HybridBlock):
     """(B, ...) -> (B, -1)."""
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
 
 
 class HybridSequential(HybridBlock, nn.Sequential):
@@ -241,3 +277,11 @@ class HybridSequential(HybridBlock, nn.Sequential):
     def add(self, *blocks):
         for block in blocks:
             self.append(block)
+
+    def _build_symbol(self, *inputs):
+        # no name scope of its own, as in the JAX block: each child traces
+        # in its own
+        x = inputs[0]
+        for block in self._modules.values():
+            x = block._build_symbol(x)
+        return x

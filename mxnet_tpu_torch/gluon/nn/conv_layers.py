@@ -15,7 +15,9 @@ natively), so nothing is copied, and it permutes the result back.
 
 ``in_channels=0`` (the default) leaves the weight's input dimension to the
 first batch (``_shape_hook``, :130-140), as Gluon does; a channel-last
-weight's is its last.  Transposed convolutions, the 1-D and 3-D pools and
+weight's is its last.  Each layer traces into ``sym.Convolution`` or
+``sym.Pooling`` (``hybrid_forward``) with the JAX layer's attributes
+(``_kwargs``).  Transposed convolutions, the 1-D and 3-D pool layers and
 ``ReflectionPad2D`` are not ported yet.
 """
 from __future__ import annotations
@@ -114,6 +116,11 @@ class _Conv(HybridBlock):
                 self.bias = None
             self.act = Activation(activation, prefix=activation + "_") \
                 if activation is not None else None
+            self._kwargs = {
+                "kernel": self._kernel, "stride": self._strides,
+                "dilate": self._dilation, "pad": self._padding,
+                "num_filter": channels, "num_group": groups,
+                "no_bias": not use_bias, "layout": self._layout}
 
     def _shape_hook(self, x, *args):
         per_group = x.shape[-1 if self._channel_last else 1] // self._groups
@@ -127,6 +134,15 @@ class _Conv(HybridBlock):
                         self._padding, self._dilation, self._groups,
                         self._channel_last)
         return y if self.act is None else self.act(y)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        attrs = {k: v for k, v in self._kwargs.items()
+                 if k not in ("num_filter", "no_bias")}
+        if bias is None:
+            act = F.Convolution(x, weight, no_bias=True, **attrs)
+        else:
+            act = F.Convolution(x, weight, bias, no_bias=False, **attrs)
+        return act if self.act is None else self.act(act)
 
 
 class Conv1D(_Conv):
@@ -172,7 +188,7 @@ class _Pooling(HybridBlock):
     them."""
 
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, layout, count_include_pad=True, prefix=None,
+                 pool_type, layout, count_include_pad=None, prefix=None,
                  params=None):
         super().__init__(prefix=prefix, params=params)
         self._layout = _resolve_layout(layout, 2)
@@ -184,7 +200,14 @@ class _Pooling(HybridBlock):
         self._ceil_mode = ceil_mode
         self._global = global_pool
         self._type = pool_type
-        self._count_include_pad = count_include_pad
+        self._count_include_pad = count_include_pad is not False
+        self._kwargs = {
+            "kernel": self._kernel, "stride": self._strides,
+            "pad": self._padding, "global_pool": global_pool,
+            "pool_type": pool_type, "layout": self._layout,
+            "pooling_convention": "full" if ceil_mode else "valid"}
+        if count_include_pad is not None:
+            self._kwargs["count_include_pad"] = count_include_pad
 
     def _alias(self):
         return "pool"
@@ -193,6 +216,9 @@ class _Pooling(HybridBlock):
         return pooling(x, self._kernel, self._strides, self._padding,
                        self._type, self._ceil_mode, self._global,
                        self._count_include_pad, self._channel_last)
+
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, name="fwd", **self._kwargs)
 
 
 class MaxPool2D(_Pooling):

@@ -89,6 +89,7 @@ class Parameter:
         if stype != "default" or grad_stype != "default":
             raise MXNetError("sparse parameters are not ported yet")
         self._owner = None          # (weakref to the block, attribute)
+        self._var = None            # the symbol variable, made once
         self._deferred_init = ()
         self._initialized = False
         self._differentiable = differentiable
@@ -328,6 +329,21 @@ class Parameter:
         t = self._tensor()
         if not isinstance(t, _LAZY) and t.grad is not None:
             t.grad.zero_()
+
+    def var(self):
+        """This parameter as a symbol variable (made once): its name,
+        shape, multipliers and initializer; an aux state (``_is_aux``) is
+        marked ``__is_aux__``, as ``export`` files it under ``aux:``."""
+        if self._var is None:
+            from .. import symbol
+            extra = {}
+            if _is_aux(self.name, self.grad_req):
+                extra["__is_aux__"] = True
+            self._var = symbol.var(self.name, shape=self.shape,
+                                   lr_mult=self.lr_mult,
+                                   wd_mult=self.wd_mult, init=self.init,
+                                   **extra)
+        return self._var
 
     def _reduce(self):
         """The values, for saving (one device: the tensor itself)."""

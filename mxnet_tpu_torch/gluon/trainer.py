@@ -82,10 +82,14 @@ class Trainer:
     ``optimizer_params`` may set ``multi_precision`` (fp32 master copies of
     fp16 and bf16 parameters).
     ``kvstore`` may be ``"device"``, ``"local"`` or None: on one device
-    there is none.  A ``dist`` kvstore is not ported yet and raises."""
+    there is none.  A ``dist`` kvstore is not ported yet and raises.
+    ``compression_params`` and ``update_on_kvstore`` are accepted as in
+    the JAX package, which applies them only to a kvstore: on one device
+    they change nothing."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore="device"):
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None):
         self._entries = _param_list(params)
         if kvstore is not None and (not isinstance(kvstore, str)
                                     or "dist" in kvstore):
@@ -137,8 +141,10 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    def step(self, batch_size):
-        """Normalize by ``batch_size``, aggregate, update."""
+    def step(self, batch_size, ignore_stale_grad=False):
+        """Normalize by ``batch_size``, aggregate, update.
+        ``ignore_stale_grad`` is accepted as in the JAX package, whose
+        update ignores it too."""
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         self._update()
@@ -146,7 +152,7 @@ class Trainer:
     def allreduce_grads(self):
         """Aggregate the gradients across devices: none on one device."""
 
-    def update(self, batch_size):
+    def update(self, batch_size, ignore_stale_grad=False):
         """Normalize by ``batch_size`` and update, without aggregating."""
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update()

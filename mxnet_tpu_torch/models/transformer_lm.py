@@ -11,7 +11,10 @@ the first call, so ``mx.random.seed(n)``, ``initialize(mx.init.Xavier())``
 and one call give the example's weights.  ``forward(idx, pos_idx)`` takes int32
 (B, T) token and position ids and returns (B, T, vocab) logits, in the
 parameters' dtype: ``net.cast("bfloat16")`` runs the whole model, and the
-kernel, in bf16.
+kernel, in bf16.  Each block also traces into ``sym.*`` as the example's
+``hybrid_forward`` does, attention as ``sym._contrib_flash_attention``:
+``net(sym.var("data"), sym.var("pos_idx"))`` is the graph a
+``SymbolBlock`` serves.
 
 Train it on repeating k-grams, on the card by default:
 
@@ -66,6 +69,18 @@ class CausalSelfAttention(block.HybridBlock):
 
         att = flash_attention(heads(q), heads(k), heads(v), causal=True)
         return self.out(att.transpose(1, 2).reshape(B, T, C))
+
+    def hybrid_forward(self, F, x):
+        q, k, v = F.split(self.qkv(x), num_outputs=3, axis=-1)
+
+        def heads(t):
+            t = t.reshape((0, 0, self._h, self._dk))
+            return F.transpose(t, axes=(0, 2, 1, 3))
+
+        att = F._contrib_flash_attention(heads(q), heads(k), heads(v),
+                                         causal=True)
+        att = F.transpose(att, axes=(0, 2, 1, 3)).reshape((0, 0, -1))
+        return self.out(att)
 
 
 class Block(block.HybridBlock):

@@ -1,8 +1,8 @@
 """Neural-network ops (the ResNet and LM subset of
 ``mxnet_tpu/ops/nn_ops.py``): ``FullyConnected`` :47, ``Convolution`` :79,
 ``Pooling`` :161, ``BatchNorm`` :329, ``LayerNorm`` :354, ``Activation``
-:416, ``softmax`` :476, ``log_softmax`` :486, ``SoftmaxOutput`` :512 and
-``softmax_cross_entropy`` :633.
+:416, ``LeakyReLU`` :441, ``softmax`` :476, ``log_softmax`` :486,
+``SoftmaxOutput`` :512 and ``softmax_cross_entropy`` :633.
 
 The Gluon layers compute through the functions here
 (:func:`fully_connected`, :func:`convolution`, :func:`pooling`,
@@ -91,71 +91,108 @@ def _convolution(attrs, data, weight, bias=None):
 
 
 def pooling(x, kernel, stride, pad, pool_type, ceil_mode, global_pool,
-            count_include_pad, channel_last):
-    """2-d max or average pooling, as the JAX ``Pooling`` op computes it.
-    ``ceil_mode`` is its 'full' convention: the right edge is padded until
-    ceil((x + 2p - k) / s) + 1 windows fit; a max pads with -inf, and an
-    average divides by the window clipped to the symmetric padding
-    (``count_include_pad``) or to the input.  Global pools reduce the
-    spatial axes, keeping them."""
+            count_include_pad, channel_last, convention=None):
+    """1-, 2- or 3-d max, average or sum pooling, as the JAX ``Pooling``
+    op computes it.  ``ceil_mode`` is its 'full' convention: the right
+    edge is padded until ceil((x + 2p - k) / s) + 1 windows fit
+    (``convention='same'`` on 1-d data: ceil((x + 2p) / s) windows); a max
+    pads with -inf, and an average divides by the window clipped to the
+    symmetric padding (``count_include_pad``) or to the input.  Global
+    pools reduce the spatial axes, keeping them."""
     if channel_last:
         x = _channel_first(x)
-    y = _pool2d(x, kernel, stride, pad, pool_type, ceil_mode, global_pool,
-                count_include_pad)
+    y = _pool(x, kernel, stride, pad, pool_type, ceil_mode, global_pool,
+              count_include_pad, convention)
     return _channel_last(y) if channel_last else y
 
 
-def _pool2d(x, k, s, p, pool_type, ceil_mode, global_pool,
-            count_include_pad):
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _avg_pool(x, k, s, p, count_include_pad=True, divisor_override=None):
+    """torch's average pool of 2-d or 3-d data, 1-d as 2-d over a unit
+    axis (``avg_pool1d`` takes no ``divisor_override``)."""
+    if x.dim() == 3:
+        return _avg_pool(x.unsqueeze(-2), (1,) + k, (1,) + s, (0,) + p,
+                         count_include_pad, divisor_override).squeeze(-2)
+    fn = F.avg_pool2d if x.dim() == 4 else F.avg_pool3d
+    return fn(x, k, s, p, count_include_pad=count_include_pad,
+              divisor_override=divisor_override)
+
+
+def _torch_pads(before, after):
+    """Per-axis (before, after) padding in ``F.pad``'s order: from the
+    last axis back."""
+    return sum(((b, a) for b, a in zip(reversed(before), reversed(after))),
+               ())
+
+
+def _pool(x, k, s, p, pool_type, ceil_mode, global_pool, count_include_pad,
+          convention):
+    nd = x.dim() - 2
+    spatial = tuple(range(2, x.dim()))
     if global_pool:
-        return (x.amax(dim=(2, 3), keepdim=True) if pool_type == "max"
-                else x.mean(dim=(2, 3), keepdim=True))
-    extra = [0, 0]
-    if ceil_mode:
-        for i in range(2):
-            rem = (x.shape[2 + i] + 2 * p[i] - k[i]) % s[i]
+        if pool_type == "max":
+            return x.amax(dim=spatial, keepdim=True)
+        if pool_type == "sum":
+            return x.sum(dim=spatial, keepdim=True)
+        return x.mean(dim=spatial, keepdim=True)
+    extra = [0] * nd
+    for i in range(nd):
+        size = x.shape[2 + i] + 2 * p[i]
+        if convention == "same" and nd == 1:
+            n_win = -(-size // s[i])
+            extra[i] = max((n_win - 1) * s[i] + k[i] - size, 0)
+        elif ceil_mode:
+            rem = (size - k[i]) % s[i]
             extra[i] = 0 if rem == 0 else s[i] - rem
-    if not any(extra) and all(2 * p[i] <= k[i] for i in range(2)):
+    if not any(extra) and all(2 * p[i] <= k[i] for i in range(nd)):
         # torch's own padding: -inf for a max, counted or not for an
         # average; its divisor is then the whole window or the part inside
         # the input, as the JAX op's
         if pool_type == "max":
-            return F.max_pool2d(x, k, s, p)
-        return F.avg_pool2d(x, k, s, p, count_include_pad=count_include_pad)
-    # pad explicitly: F.pad's order is (W left, W right, H top, H bottom)
-    pads = (p[1], p[1] + extra[1], p[0], p[0] + extra[0])
+            return _MAX_POOL[nd](x, k, s, p)
+        if pool_type == "sum":
+            return _avg_pool(x, k, s, p, divisor_override=1)
+        return _avg_pool(x, k, s, p, count_include_pad)
+    # pad explicitly
+    zero = (0,) * nd
+    pads = _torch_pads(p, [a + b for a, b in zip(p, extra)])
     if pool_type == "max":
-        return F.max_pool2d(F.pad(x, pads, value=-math.inf), k, s)
+        return _MAX_POOL[nd](F.pad(x, pads, value=-math.inf), k, s)
+    if pool_type == "sum":
+        return _avg_pool(F.pad(x, pads), k, s, zero, divisor_override=1)
     # the mean of the padded window over the mean of a mask that is 1 where
     # a cell counts: the window's area cancels
     mask = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
                       device=x.device)
     if count_include_pad:
-        mask = F.pad(mask, (p[1], p[1], p[0], p[0]), value=1.0)
-        mask_pads = (0, extra[1], 0, extra[0])
+        mask = F.pad(mask, _torch_pads(p, p), value=1.0)
+        mask_pads = _torch_pads(zero, extra)
     else:
         mask_pads = pads
-    return (F.avg_pool2d(F.pad(x, pads), k, s)
-            / F.avg_pool2d(F.pad(mask, mask_pads), k, s))
+    return (_avg_pool(F.pad(x, pads), k, s, zero)
+            / _avg_pool(F.pad(mask, mask_pads), k, s, zero))
 
 
 @register("Pooling")
 def _pooling(attrs, data):
-    """2-d only; the 'same' convention is 'full' in 2-d (pooling.cc)."""
-    if data.dim() != 4:
-        raise ValueError("Pooling is ported for 2-d data only, got %d-d"
-                         % (data.dim() - 2))
+    """max, avg or sum pooling of 1-, 2- or 3-d data; 'same' is 'full'
+    beyond 1-d (pooling.cc)."""
+    nd = data.dim() - 2
     pool_type = attrs.get("pool_type", "max")
-    if pool_type not in ("max", "avg"):
-        raise ValueError("Pooling: pool_type %r is not ported" % pool_type)
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError("unsupported pool_type %s" % pool_type)
     layout = attrs.get("layout")
     global_pool = bool(attrs.get("global_pool", False))
-    kernel = (1, 1) if global_pool else _pair(attrs["kernel"], 2)
-    return pooling(data, kernel, _pair(attrs.get("stride", 1), 2),
-                   _pair(attrs.get("pad", 0), 2), pool_type,
-                   attrs.get("pooling_convention", "valid") != "valid",
-                   global_pool, bool(attrs.get("count_include_pad", True)),
-                   layout is not None and not layout.startswith("NC"))
+    kernel = (1,) * nd if global_pool else _pair(attrs["kernel"], nd)
+    convention = attrs.get("pooling_convention", "valid")
+    return pooling(data, kernel, _pair(attrs.get("stride", 1), nd),
+                   _pair(attrs.get("pad", 0), nd), pool_type,
+                   convention != "valid", global_pool,
+                   bool(attrs.get("count_include_pad", True)),
+                   layout is not None and not layout.startswith("NC"),
+                   convention)
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +264,34 @@ def _activation(attrs, data):
     if act not in ACTIVATIONS:
         raise ValueError("unknown act_type %s" % act)
     return ACTIVATIONS[act](data)
+
+
+def _is_rrelu(attrs):
+    return attrs.get("act_type", "leaky") == "rrelu"
+
+
+@register("LeakyReLU", mode_dependent=_is_rrelu, needs_rng=_is_rrelu)
+def _leaky_relu(attrs, data, gamma=None):
+    """leaky, elu, selu, prelu (slope ``gamma`` per channel, axis 1) and
+    gelu (tanh form, as ``jax.nn.gelu``); rrelu draws its slopes, and
+    raises until the RNG is ported."""
+    act = attrs.get("act_type", "leaky")
+    slope = float(attrs.get("slope", 0.25))
+    if act == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act == "elu":
+        return torch.where(data >= 0, data, slope * (torch.exp(data) - 1))
+    if act == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(data >= 0, data,
+                                   alpha * (torch.exp(data) - 1))
+    if act == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act == "gelu":
+        return F.gelu(data, approximate="tanh")
+    raise ValueError("unknown act_type %s" % act)
 
 
 def _temper(attrs, data):
@@ -404,6 +469,12 @@ def _embedding_param_shapes(attrs, in_shapes):
     return {"weight": (int(attrs["input_dim"]), int(attrs["output_dim"]))}
 
 
+def _prelu_param_shapes(attrs, in_shapes):
+    if attrs.get("act_type") == "prelu":
+        return {"gamma": (in_shapes[0][1],)}
+    return {}
+
+
 def _softmax_output_label_shape(attrs, in_shapes):
     data = in_shapes[0]
     if attrs.get("multi_output"):
@@ -423,6 +494,9 @@ def set_symbol_specs():
                        "aux:moving_var"], _bn_param_shapes),
         "LayerNorm": (["data", "gamma", "beta"], _ln_param_shapes),
         "Embedding": (["data", "weight"], _embedding_param_shapes),
+        "LeakyReLU": (lambda attrs: ["data", "gamma"]
+                      if attrs.get("act_type") == "prelu" else ["data"],
+                      _prelu_param_shapes),
         "SoftmaxOutput": (["data", "label:label"],
                           _softmax_output_label_shape),
         "softmax_cross_entropy": (["data", "label:label"],

@@ -3,7 +3,15 @@
 ``argmax`` (:84) and ``pick`` (:118).
 
 MXNet 1.3's conventions, as there: reducing every axis gives shape (1,),
-not a 0-d array; ``argmax`` returns float32 indices.
+not a 0-d array; ``argmax`` returns float32 indices; ``mean`` of an
+integer array is float32, as ``jnp.mean`` gives it.
+
+One deliberate divergence: ``exclude=True`` with a negative ``axis``.
+The port normalises the axis first, so ``sum(x, axis=-1, exclude=True)``
+on shape (2, 3, 4) reduces axes 0 and 1 and gives shape (4,), as MXNet and
+numpy do.  The JAX package compares the raw axis with ``range(ndim)``
+(``mxnet_tpu/ops/reduce_ops.py:33-36``), so it reduces every axis there.
+Non-negative axes agree.
 """
 from __future__ import annotations
 
@@ -51,7 +59,9 @@ def _nanprod(x, dim):
 
 _REDUCE = {
     "sum": lambda x, d, k: torch.sum(x, dim=d, keepdim=k),
-    "mean": lambda x, d, k: torch.mean(x, dim=d, keepdim=k),
+    "mean": lambda x, d, k: torch.mean(
+        x if x.is_floating_point() else x.to(torch.float32), dim=d,
+        keepdim=k),
     "prod": _over(torch.prod),
     "nansum": lambda x, d, k: torch.nansum(x, dim=d, keepdim=k),
     "nanprod": _over(_nanprod),

@@ -1,9 +1,14 @@
 """Shape, joining, indexing and dot ops (a subset of
 ``mxnet_tpu/ops/tensor_ops.py``): ``Reshape`` with MXNet's codes
 (:24-66), ``Flatten`` (:69), ``transpose`` (:77), ``expand_dims`` (:109),
-``SliceChannel``/``split`` (:226-238), ``Concat`` (:256-262), ``stack``
-(:265), ``Embedding`` (:349), ``one_hot`` (:361), ``dot`` (:474) and
-``batch_dot`` (:490).
+``SliceChannel``/``split`` (:226-238), ``slice_like`` (:214), ``Concat`` (:256-262),
+``stack`` (:265), ``Embedding`` (:349), ``one_hot`` (:361), ``dot``
+(:474), ``batch_dot`` (:490) and the creators ``_zeros``, ``_ones`` and
+``_arange`` (:515-552).
+
+A creator has no input to take a device from: it makes its output on
+``attrs["_device"]``, which the executor sets to the graph's device (and
+shape inference to ``meta``), else on the current context.
 
 Indices arrive in any dtype (MXNet's are often float) and are widened to
 int64 only inside ``Embedding`` and ``one_hot``.
@@ -13,9 +18,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..context import resolve_device
 from .registry import alias, register
 
-__all__ = ["reshape_shape"]
+__all__ = ["embedding", "reshape_shape"]
 
 
 def reshape_shape(in_shape, shape, reverse=False):
@@ -91,6 +97,20 @@ def _expand_dims(attrs, x):
     return x.unsqueeze(int(attrs["axis"]))
 
 
+@register("slice_like")
+def _slice_like(attrs, x, y):
+    """``x`` cut to ``y``'s length on ``axes`` (default: every axis both
+    have), from the start."""
+    axes = attrs.get("axes", ())
+    if not axes:
+        axes = tuple(range(min(x.dim(), y.dim())))
+    idx = [slice(None)] * x.dim()
+    for a in axes:
+        a = int(a) % x.dim()
+        idx[a] = slice(0, y.shape[a])
+    return x[tuple(idx)]
+
+
 @register("SliceChannel",
           num_outputs=lambda attrs: int(attrs.get("num_outputs", 1)))
 def _slice_channel(attrs, x):
@@ -121,11 +141,17 @@ def _stack(attrs, *arrays):
     return torch.stack(arrays, dim=int(attrs.get("axis", 0)))
 
 
+def embedding(data, weight):
+    """Rows of ``weight`` at ``data`` (indices of any dtype, truncated);
+    the op ``Embedding`` and the layer ``gluon.nn.Embedding``."""
+    if data.dtype not in (torch.int32, torch.int64):
+        data = data.long()
+    return F.embedding(data, weight)
+
+
 @register("Embedding")
 def _embedding(attrs, data, weight):
-    """Row lookup in ``weight``; the layer ``gluon.nn.Embedding`` runs the
-    same ``F.embedding``."""
-    return F.embedding(data.long(), weight)
+    return embedding(data, weight)
 
 
 @register("one_hot", no_grad=True)
@@ -160,3 +186,37 @@ def _batch_dot(attrs, a, b):
     if attrs.get("transpose_b", False):
         b = b.transpose(-1, -2)
     return torch.matmul(a, b)
+
+
+# ---------------------------------------------------------------------------
+# creators
+
+def _created(attrs, make):
+    from ..ndarray.ndarray import torch_dtype
+    return make(dtype=torch_dtype(attrs.get("dtype", "float32")),
+                device=resolve_device(attrs.get("_device")))
+
+
+@register("_zeros")
+def _zeros_op(attrs):
+    return _created(attrs, lambda **kw: torch.zeros(tuple(attrs["shape"]),
+                                                    **kw))
+
+
+@register("_ones")
+def _ones_op(attrs):
+    return _created(attrs, lambda **kw: torch.ones(tuple(attrs["shape"]),
+                                                   **kw))
+
+
+@register("_arange")
+def _arange_op(attrs):
+    """``start`` to ``stop`` by ``step`` (0 to ``start`` without
+    ``stop``), each value ``repeat`` times."""
+    start, stop = attrs.get("start", 0), attrs.get("stop")
+    if stop is None:
+        start, stop = 0, start
+    v = _created(attrs, lambda **kw: torch.arange(
+        start, stop, attrs.get("step", 1.0), **kw))
+    repeat = int(attrs.get("repeat", 1))
+    return v.repeat_interleave(repeat) if repeat > 1 else v

@@ -34,10 +34,11 @@ layer count/max_len) is read off the discovered shapes.
 
 :class:`TinyGluonLM` is the in-tree demo block: the same pre-norm
 transformer as ``TinyCausalLM`` written as a ``HybridBlock`` (a batch
-forward over tokens ``[B, T]``).
+forward over tokens ``[B, T]``) that also traces into ``sym.*``, so it
+exports; the adapter serves a ``SymbolBlock.imports`` of the export as it
+serves the block, from the same weights.
 
-Not ported yet: serving an exported block (``SymbolBlock.imports``, which
-waits for ``HybridBlock.export``) and ``partition_specs`` (sharding).
+Not ported yet: ``partition_specs`` (sharding).
 """
 from __future__ import annotations
 
@@ -309,6 +310,60 @@ class TinyGluonLM(HybridBlock):
             h = h + F.linear(F.gelu(g, approximate="tanh"),
                              w["l%d_w2_weight" % l])
         return F.linear(_rms(h), w["embed_weight"])              # [B, T, V]
+
+    def _rms(self, F, x):
+        denom = F.sqrt(F.mean(x * x, axis=-1, keepdims=True) + 1e-6)
+        return F.broadcast_div(x, denom)
+
+    def hybrid_forward(self, F, tokens, **params):
+        """The JAX block's graph (``[T, B, H]`` layout throughout, so that
+        ``slice_like`` on axis 0 cuts the positions to T without knowing
+        T when the graph is built)."""
+        H, nh = self._hidden, self._heads
+        d = H // nh
+        emb = F.Embedding(F.transpose(tokens, axes=(1, 0)),
+                          params["embed_weight"],
+                          input_dim=self._vocab, output_dim=H)
+        pos = F.slice_like(params["pos_weight"], emb, axes=(0,))
+        h = F.broadcast_add(emb, F.expand_dims(pos, axis=1))
+        ar = F.slice_like(F.arange(start=0, stop=self._max_len), emb,
+                          axes=(0,))
+        # attend = 1.0 where query position i >= key position j
+        attend = F.broadcast_greater_equal(F.expand_dims(ar, axis=1),
+                                           F.expand_dims(ar, axis=0))
+        negmask = F.expand_dims((attend - 1.0) * 1e30, axis=0)  # [1, T, T]
+        for l in range(self._layers):
+            x = self._rms(F, h)
+            qkv = []
+            for r in ("wq", "wk", "wv"):
+                y = F.FullyConnected(x, params["l%d_%s_weight" % (l, r)],
+                                     num_hidden=H, no_bias=True,
+                                     flatten=False)       # [T, B, H]
+                y = F.reshape(y, shape=(0, 0, nh, d))
+                y = F.transpose(y, axes=(1, 2, 0, 3))     # [B, nh, T, d]
+                qkv.append(F.reshape(y, shape=(-3, -2)))  # [B*nh, T, d]
+            q, k, v = qkv
+            scores = F.batch_dot(q, k, transpose_b=True) / float(d) ** 0.5
+            w = F.softmax(F.broadcast_add(scores, negmask), axis=-1)
+            att = F.batch_dot(w, v)                       # [B*nh, T, d]
+            att = F.reshape(att, shape=(-4, -1, nh, 0, 0))
+            att = F.transpose(att, axes=(2, 0, 1, 3))     # [T, B, nh, d]
+            att = F.reshape(att, shape=(0, 0, -3))
+            h = h + F.FullyConnected(att, params["l%d_wo_weight" % l],
+                                     num_hidden=H, no_bias=True,
+                                     flatten=False)
+            g = F.FullyConnected(self._rms(F, h),
+                                 params["l%d_w1_weight" % l],
+                                 num_hidden=2 * H, no_bias=True,
+                                 flatten=False)
+            h = h + F.FullyConnected(F.LeakyReLU(g, act_type="gelu"),
+                                     params["l%d_w2_weight" % l],
+                                     num_hidden=H, no_bias=True,
+                                     flatten=False)
+        logits = F.FullyConnected(self._rms(F, h), params["embed_weight"],
+                                  num_hidden=self._vocab, no_bias=True,
+                                  flatten=False)          # [T, B, V]
+        return F.transpose(logits, axes=(1, 0, 2))
 
 
 def copy_reference_weights(block, ref):

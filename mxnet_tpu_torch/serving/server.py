@@ -28,8 +28,11 @@ moment its backend comes back.  ``stats()`` exposes per-model ``health``
 Decode engines (``serving/decode``) attach to the same surface:
 ``attach_engine`` registers one under its name, ``stats()`` and
 ``health()`` report it beside the batched models, and ``stop()`` tears it
-down with them.  Not yet ported: ``load_exported`` (the symbol/export
-slice).
+down with them.
+
+A saved model (``HybridBlock.export``'s ``-symbol.json`` and ``.params``)
+serves through ``load_exported``: ``SymbolBlock.imports``, then
+``load_model``, whose registry graph then holds the imported graph's ops.
 
 Quickstart::
 
@@ -194,6 +197,24 @@ class ModelServer:
                 entry.batcher.stop()
             raise
         return model
+
+    def load_exported(self, name, prefix, epoch=0, input_names=("data",),
+                      ctx=None, **kwargs):
+        """Load ``prefix-symbol.json`` and ``prefix-%04d.params`` (an
+        ``HybridBlock.export``) through ``SymbolBlock.imports`` and serve
+        it as :meth:`load_model` does, on ``ctx`` (default: ``device`` of
+        ``kwargs``, else ``cuda:0``).  A model of several inputs names
+        them (``input_names=("data", "pos_idx")``) and gives one shape
+        and dtype each (``input_shapes=[((T,), (T,))]``,
+        ``dtype=("int32", "int32")``)."""
+        from ..gluon.block import SymbolBlock
+        if ctx is None:
+            ctx = kwargs.get("device")
+        block = SymbolBlock.imports(
+            "%s-symbol.json" % prefix, list(input_names),
+            "%s-%04d.params" % (prefix, epoch), ctx=resolve_device(ctx))
+        kwargs.setdefault("device", block._device)
+        return self.load_model(name, block, **kwargs)
 
     def unload(self, name):
         # registry first: concurrent predicts turn into unknown-model errors

@@ -27,7 +27,8 @@ from ..base import MXNetError
 from ..name import current as _current_names
 from ..ops.registry import get_op
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
+           "zeros", "ones", "arange"]
 
 
 class _Node:
@@ -384,6 +385,8 @@ def _infer_shapes(sym, specs, partial):
                  if not k.startswith("__") and k != "ctx_group"}
         if op.mode_for(attrs):
             attrs["_training"] = False
+        if not n.inputs:
+            attrs["_device"] = "meta"
         fcompute = op.plain or op.fcompute
         try:
             with torch.no_grad():
@@ -638,3 +641,24 @@ def load_json(json_str):
     else:
         entries = [(nodes[-1], 0)]
     return Symbol(entries)
+
+
+# creators: graph nodes with no inputs, made on the bound graph's device
+def zeros(shape, dtype=None, **kwargs):
+    return _create("_zeros", [], {"shape": tuple(shape)
+                                  if not isinstance(shape, int)
+                                  else (shape,),
+                                  "dtype": str(dtype or "float32")})
+
+
+def ones(shape, dtype=None, **kwargs):
+    return _create("_ones", [], {"shape": tuple(shape)
+                                 if not isinstance(shape, int)
+                                 else (shape,),
+                                 "dtype": str(dtype or "float32")})
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype=None, **kwargs):
+    return _create("_arange", [], {"start": start, "stop": stop,
+                                   "step": step, "repeat": repeat,
+                                   "dtype": str(dtype or "float32")})

@@ -2,8 +2,9 @@
 
 The serving registry and the decode engine wrap each execution in
 :func:`retry`, so that a transient failure costs latency instead of a
-failed batch.  The retryable class is ``faults.TransientFault``, re-exported
-here as the JAX package's ``util`` does.
+failed batch.  The retryable class is ``faults.TransientFault`` unless the
+caller names others (``retryable=``); it is re-exported here as the JAX
+package's ``util`` does.
 """
 from __future__ import annotations
 
@@ -20,16 +21,20 @@ __all__ = ["TransientFault", "retry"]
 _JITTER_RNG = _random.Random(0x5EED)
 
 
-def retry(attempts=3, backoff=0.01, jitter=0.5, on_retry=None):
-    """Decorator: re-run the wrapped callable on a :class:`TransientFault`.
+def retry(attempts=3, backoff=0.01, jitter=0.5, retryable=None,
+          on_retry=None):
+    """Decorator: re-run the wrapped callable on a retryable failure.
 
     ``attempts`` total tries; sleep ``backoff * 2**i`` with up to ``jitter``
-    fractional randomization between tries.  ``on_retry(exc, attempt)`` is
+    fractional randomization between tries.  ``retryable`` is an exception
+    class or a tuple of them (default :class:`TransientFault`).  ``on_retry(exc, attempt)`` is
     called before each re-try.  The last failure re-raises
     unchanged once attempts are exhausted.
     """
     if attempts < 1:
         raise ValueError("retry needs attempts >= 1, got %r" % attempts)
+
+    kinds = TransientFault if retryable is None else retryable
 
     def decorate(fn):
         @functools.wraps(fn)
@@ -37,7 +42,7 @@ def retry(attempts=3, backoff=0.01, jitter=0.5, on_retry=None):
             for attempt in range(attempts):
                 try:
                     return fn(*args, **kwargs)
-                except TransientFault as exc:
+                except kinds as exc:
                     if attempt == attempts - 1:
                         raise
                     if on_retry is not None:

@@ -1,5 +1,7 @@
 """mxnet_tpu_torch's Gluon conv, pooling, activation, BatchNorm and Flatten
-layers, and ``metric.Accuracy``, against the JAX package's.
+layers, ``Dense`` with an activation, ``LayerNorm``'s options and
+``Embedding`` on float indices, and ``metric.Accuracy``, against the JAX
+package's.
 
 The same seeded numpy inputs and weights go through both layers.  Bounds:
 1e-5 on O(1) outputs of one fp32 layer (sums taken in another order;
@@ -169,6 +171,54 @@ def test_flatten_matches_jax():
     got = nn.Flatten()(_t(x)).numpy()
     assert got.shape == want.shape == (3, 40)
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("act", ["relu", "sigmoid", "tanh", "softrelu",
+                                 "softsign"])
+def test_dense_with_any_activation_matches_jax(act):
+    rng = np.random.RandomState(10)
+    x = rng.normal(0, 2, (3, 4)).astype(np.float32)
+    jd = mx.gluon.nn.Dense(6, activation=act, in_units=4)
+    jd.initialize(mx.init.Xavier())
+    jd.bias.set_data(mx.nd.array(rng.normal(0, 1, (6,))))
+    td = nn.Dense(6, activation=act, in_units=4, device="cpu")
+    _copy_params(jd, td)
+    assert td.act.prefix == jd.act.prefix == td.prefix + act + "_"
+    got = td(_t(x)).detach().numpy()
+    assert np.abs(got - jd(mx.nd.array(x)).asnumpy()).max() < BOUND
+
+
+@pytest.mark.parametrize("kw,shape", [
+    (dict(axis=1), (2, 5, 3)),
+    (dict(epsilon=1e-2), (2, 3, 5)),
+    (dict(center=False), (4, 5)),
+    (dict(scale=False, axis=0), (5, 3))])
+def test_layernorm_options_match_jax(kw, shape):
+    rng = np.random.RandomState(11)
+    x = rng.normal(0, 2, shape).astype(np.float32)
+    C = shape[kw.get("axis", -1)]
+    jln = mx.gluon.nn.LayerNorm(in_channels=C, **kw)
+    jln.initialize()
+    for p in jln.collect_params().values():
+        p.set_data(mx.nd.array(rng.normal(0, 1, (C,))))
+    tln = nn.LayerNorm(in_channels=C, device="cpu", **kw)
+    _copy_params(jln, tln)
+    assert tln.gamma.requires_grad == kw.get("scale", True)
+    assert tln.beta.requires_grad == kw.get("center", True)
+    got = tln(_t(x)).detach().numpy()
+    assert np.abs(got - jln(mx.nd.array(x)).asnumpy()).max() < BOUND
+
+
+def test_embedding_takes_float_indices_as_jax():
+    idx = np.array([[1, 2, 3], [9, 0, 4]], np.float32)
+    jemb = mx.gluon.nn.Embedding(10, 5)
+    jemb.initialize(mx.init.Xavier())
+    temb = nn.Embedding(10, 5, device="cpu")
+    _copy_params(jemb, temb)
+    want = jemb(mx.nd.array(idx, dtype="float32")).asnumpy()
+    got = temb(tmx.nd.array(idx, ctx=tmx.cpu(), dtype="float32"))
+    assert got.shape == want.shape == (2, 3, 5)
+    np.testing.assert_array_equal(got.asnumpy(), want)
 
 
 # ------------------------------------------------------------ BatchNorm

@@ -15,7 +15,8 @@ seed 7: tests/test_decode.py's model) runs in both packages:
   own ``generate_reference``, with no signature missed after warmup and no
   KV block leaked;
 * a stream exported mid-stream and imported into a second engine, and the
-  Gluon adapter over ``TinyGluonLM``, finish as the plain model does.
+  Gluon adapter over ``TinyGluonLM`` and over a ``SymbolBlock.imports`` of
+  its ``export``, finish as the plain model does.
 
 Engines are built once per module with small ladders (prompts <= 16,
 <= 24 new tokens) to keep the file within a few seconds of JAX compiles.
@@ -388,6 +389,39 @@ def test_gluon_adapter_streams_equal_the_plain_model(models, greedy_pair):
     torch.testing.assert_close(batch, paged, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="embed"):
         decode.adapter.discover_roles(["l0_wq_weight"])
+
+
+def test_adapter_export_roundtrip_serves_bitwise(models, greedy_pair,
+                                                 tmp_path):
+    """``export`` -> ``SymbolBlock.imports`` -> the adapter: the imported
+    block's weights serve token-identical streams
+    (``tests/test_sharded_decode.py:382-392``)."""
+    from mxnet_tpu_torch.gluon.block import SymbolBlock
+    from mxnet_tpu_torch.serving.decode.adapter import copy_reference_weights
+    _, tm = models
+    _, te = greedy_pair
+    block = decode.TinyGluonLM(vocab_size=48, hidden=32, num_layers=2,
+                               num_heads=2, max_len=128, device="cpu")
+    copy_reference_weights(block, tm)
+    prefix = str(tmp_path / "lm")
+    block.export(prefix)
+    imported = SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                   prefix + "-0000.params", ctx="cpu")
+    adapted = decode.GluonCausalLMAdapter(imported, num_heads=2)
+    assert adapted.role_names == decode.GluonCausalLMAdapter(
+        block, num_heads=2).role_names
+    eng = decode.DecodeEngine(adapted, name="adexp", **ENGINE_KW)
+    try:
+        prompts, budgets = _prompts(6, seed=2)
+        assert _run_streams(eng, prompts, budgets) == [
+            te.generate_reference(p, b).tolist()
+            for p, b in zip(prompts, budgets)]
+    finally:
+        eng.stop()
+    tokens = torch.tensor([[3, 1, 4, 1, 5]], dtype=torch.int32)
+    with torch.no_grad():
+        torch.testing.assert_close(imported(tokens), block(tokens),
+                                   rtol=1e-4, atol=1e-5)
 
 
 def test_device_defaults_to_cuda_and_raises_without_it(monkeypatch):

@@ -85,6 +85,34 @@ def test_fault_catalog_and_retry_class():
     faults.fault_point("serving.predict")          # no plan: a no-op
 
 
+@pytest.mark.parametrize("retryable", [ValueError, (KeyError, ValueError)])
+def test_retry_takes_the_retryable_classes(retryable):
+    """``util.retry(retryable=...)`` re-runs on the classes named (a class
+    or a tuple, as the JAX package's), and on them only."""
+    from mxnet_tpu import util as jutil
+    for pkg, transient in ((util, faults.TransientFault),
+                           (jutil, jfaults.TransientFault)):
+        calls = []
+
+        @pkg.retry(attempts=3, backoff=0.0, retryable=retryable)
+        def flaky():
+            calls.append(1)
+            if len(calls) < 3:
+                raise ValueError("blip")
+            return len(calls)
+
+        assert flaky() == 3
+
+        @pkg.retry(attempts=3, backoff=0.0, retryable=retryable)
+        def fatal():
+            calls.append(1)
+            raise transient("not named")
+
+        with pytest.raises(transient):
+            fatal()
+        assert len(calls) == 4
+
+
 def test_served_model_retries_a_transient_predict_fault():
     from mxnet_tpu_torch.gluon import nn
     net = nn.Dense(2, in_units=4, device="cpu")

@@ -99,6 +99,23 @@ res = server.predict("lm", (np.zeros(8, np.int32), np.arange(8, dtype=np.int32))
                      timeout_ms=10000)
 server.stop()
 assert res.status == "OK", res
+# the saved-model path: the graph over both inputs, its files, served
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    sym = mxnet_tpu_torch.sym
+    net(sym.var("data"), sym.var("pos_idx")).save(tmp + "/lm-symbol.json")
+    net.collect_params().save(tmp + "/lm-0000.params")
+    server = serving.ModelServer()
+    server.load_exported("lm", tmp + "/lm", input_names=("data", "pos_idx"),
+                         input_shapes=[((8,), (8,))],
+                         dtype=("int32", "int32"), max_batch=2,
+                         device="cpu")
+    exported = server.predict("lm", (np.zeros(8, np.int32),
+                                     np.arange(8, dtype=np.int32)),
+                              timeout_ms=10000)
+    server.stop()
+assert exported.status == "OK", exported
+assert np.array_equal(exported.output, res.output)
 # bf16: cast, a multi-precision step and a state file
 from mxnet_tpu_torch import gluon
 from mxnet_tpu_torch.gluon.model_zoo import vision

@@ -148,6 +148,17 @@ def _tensor_cases():
         Case("batch_dot", [_f(2, 3, 4), _f(2, 4, 5)], tol=NN),
         Case("batch_dot", [_f(2, 4, 3), _f(2, 5, 4)],
              {"transpose_a": True, "transpose_b": True}, tol=NN),
+        Case("Embedding", [np.array([[1, 2, 3], [6, 0, 4]], np.float32),
+                           _f(7, 4)], {"input_dim": 7, "output_dim": 4},
+             grad=[1]),
+        Case("slice_like", [_f(4, 5, 6), _f(2, 3, 6)], {"axes": (0, 1)},
+             grad=[0]),
+        Case("slice_like", [_f(4, 5), _f(3, 2)], grad=[0]),
+        Case("_zeros", [], {"shape": (2, 3)}),
+        Case("_ones", [], {"shape": (4,), "dtype": "int32"}),
+        Case("_arange", [], {"start": 2, "stop": 8, "step": 2,
+                             "repeat": 2}),
+        Case("_arange", [], {"start": 5, "dtype": "int32"}),
     ]
 
 
@@ -161,7 +172,10 @@ def _reduce_cases():
                   Case(name, [x], {"axis": (0, 2), "keepdims": True},
                        tol=NN)]
     cases += [Case("mean", [x], {"axis": 1, "exclude": True}, tol=NN),
-              Case("prod", [x], {"axis": -1}, tol=NN)]
+              Case("prod", [x], {"axis": -1}, tol=NN),
+              Case("mean", [np.array([[3, 4, 8], [1, -2, 0]], np.int32)],
+                   {"axis": 1}),
+              Case("mean", [_i(2, 3, high=9)])]
     cases += [Case(name, [xn], {"axis": 2}, grad=[], tol=NN)
               for name in ("nansum", "nanprod")]
     cases += [Case("sum_axis", [x], {"axis": 0}, tol=NN),
@@ -186,6 +200,7 @@ def _nn_cases():
     lab = np.array([0, 4, 2, 1], np.float32)
     ms = _f(2, 3, 4)
     ms_lab = np.array([[0, 2, 1, 2], [1, 1, 0, 2]], np.float32)
+    vol = _f(1, 2, 5, 6, 4)
     cases = [
         Case("FullyConnected", [_f(2, 3, 4), _f(5, 12), _f(5)], tol=NN),
         Case("FullyConnected", [_f(2, 3, 4), _f(5, 4), _f(5)],
@@ -216,6 +231,26 @@ def _nn_cases():
         Case("Pooling", [nhwc], {"kernel": (3, 3), "stride": (2, 2),
                                  "layout": "NHWC",
                                  "pooling_convention": "full"}, tol=NN),
+        Case("Pooling", [img], {"kernel": (3, 3), "stride": (2, 2),
+                                "pad": (1, 1), "pool_type": "sum",
+                                "pooling_convention": "full"}, tol=NN),
+        Case("Pooling", [img], {"global_pool": True, "kernel": (1, 1),
+                                "pool_type": "sum"}, tol=NN),
+        Case("Pooling", [_f(2, 3, 9)], {"kernel": (3,), "stride": (2,),
+                                        "pad": (1,), "pool_type": "avg"},
+             tol=NN),
+        Case("Pooling", [_f(2, 3, 8)], {"kernel": (3,), "stride": (2,),
+                                        "pool_type": "sum",
+                                        "pooling_convention": "same"},
+             tol=NN),
+        Case("Pooling", [_f(2, 9, 3)], {"kernel": (2,), "stride": (2,),
+                                        "layout": "NWC"}, tol=NN),
+        Case("Pooling", [vol], {"kernel": (2, 2, 2), "stride": (2, 2, 2)},
+             tol=NN),
+        Case("Pooling", [vol], {"kernel": (3, 3, 3), "stride": (2, 2, 2),
+                                "pad": (1, 1, 1), "pool_type": "avg",
+                                "pooling_convention": "full",
+                                "count_include_pad": False}, tol=NN),
         Case("BatchNorm", [img] + bn, {"fix_gamma": False}, grad=[0, 1, 2],
              n_out=3, training=True, tol=NN, grad_outs=1),
         Case("BatchNorm", [img] + bn, {"eps": 1e-5}, grad=[0, 2], n_out=3,
@@ -261,6 +296,15 @@ def _nn_cases():
     ]
     for act in ("relu", "sigmoid", "tanh", "softrelu", "softsign"):
         cases.append(Case("Activation", [X], {"act_type": act}, tol=NN))
+    cases += [Case("LeakyReLU", [X], {"act_type": "leaky", "slope": 0.1},
+                   tol=NN),
+              Case("LeakyReLU", [X], tol=NN),
+              Case("LeakyReLU", [X], {"act_type": "elu", "slope": 0.7},
+                   tol=NN),
+              Case("LeakyReLU", [X], {"act_type": "selu"}, tol=NN),
+              Case("LeakyReLU", [X], {"act_type": "gelu"}, tol=NN),
+              Case("LeakyReLU", [img, _f(3, low=0.1, high=0.5)],
+                   {"act_type": "prelu"}, tol=NN)]
     return cases
 
 
@@ -332,12 +376,14 @@ def _jax_table(cases):
 
 def _port_case(c, heads):
     """The case through mxnet_tpu_torch.nd on the CPU, its outputs and the
-    gradients of its ``grad`` inputs under the head gradients ``heads``."""
+    gradients of its ``grad`` inputs under the head gradients ``heads``.
+    It runs in a ``cpu()`` scope, where the creators, which have no input
+    to take a device from, make their arrays."""
     nd, autograd = tmx.nd, tmx.autograd
     arrays = [nd.array(a, ctx=tmx.cpu(), dtype=a.dtype) for a in c.inputs]
     for i in c.grad:
         arrays[i].attach_grad()
-    with autograd.record(train_mode=c.training):
+    with autograd.record(train_mode=c.training), tmx.cpu():
         outs = _outputs(getattr(nd, c.name)(*arrays, **c.attrs), c)
     pairs = [(o, nd.array(h, ctx=tmx.cpu(), dtype=o.dtype))
              for o, h in zip(outs, heads)
@@ -411,6 +457,32 @@ def test_rng_ops_raise_until_the_rng_is_ported():
     op = Op("_random_thing", lambda attrs, x: x, needs_rng=True)
     with pytest.raises(MXNetError, match="RNG"):
         op.apply({}, torch.zeros(1))
+
+
+def test_rrelu_draws_and_raises_until_the_rng_is_ported():
+    x = tmx.nd.array(_f(2, 3), ctx=tmx.cpu())
+    with pytest.raises(MXNetError, match="RNG"):
+        tmx.nd.LeakyReLU(x, act_type="rrelu")
+
+
+@pytest.mark.parametrize("name", ["sum", "mean", "prod", "max", "min"])
+def test_exclude_with_a_negative_axis_reduces_as_numpy(name):
+    """The port normalises a negative axis before ``exclude`` (as MXNet and
+    numpy): held to numpy there, and to the JAX package for non-negative
+    axes, where the two packages agree."""
+    x = _f(2, 3, 4, low=0.5, high=1.5)
+    got = getattr(tmx.nd, name)(tmx.nd.array(x, ctx=tmx.cpu()), axis=-1,
+                                exclude=True).asnumpy()
+    want = getattr(np, name)(x, axis=(0, 1))
+    assert got.shape == want.shape == (4,)
+    np.testing.assert_allclose(got, want, **NN)
+    for axis in (2, (0, 2)):
+        got = getattr(tmx.nd, name)(tmx.nd.array(x, ctx=tmx.cpu()),
+                                    axis=axis, exclude=True).asnumpy()
+        want = getattr(jmx.nd, name)(jmx.nd.array(x), axis=axis,
+                                     exclude=True).asnumpy()
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **NN)
 
 
 def test_flash_attention_op_takes_the_plain_version_on_the_cpu():

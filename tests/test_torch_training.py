@@ -471,6 +471,38 @@ def test_trainer_steps_without_backward_match_jax():
         agree()
 
 
+def test_trainer_takes_the_jax_trainers_keywords():
+    """``ignore_stale_grad`` on ``step``/``update``, and
+    ``compression_params``/``update_on_kvstore`` at construction, as the
+    JAX Trainer takes them (on one device they change nothing): the
+    weights after a step and an update equal the JAX Trainer's."""
+    rng = np.random.RandomState(11)
+    jnet, tnet = _dense_pair(rng)
+    opt = {"learning_rate": 0.1, "momentum": 0.9}
+    kw = dict(compression_params=None, update_on_kvstore=False)
+    jtrainer = mx.gluon.Trainer(jnet.collect_params(), "sgd", dict(opt),
+                                **kw)
+    ttrainer = gluon.Trainer(tnet.named_parameters(), "sgd", dict(opt),
+                             **kw)
+    x = rng.normal(0, 1, (4, 5)).astype(np.float32)
+    y = rng.randint(0, 3, 4).astype(np.float32)
+    for step in ("step", "update"):
+        with mx.autograd.record():
+            loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                jnet(mx.nd.array(x)), mx.nd.array(y))
+        loss.backward()
+        getattr(jtrainer, step)(4, ignore_stale_grad=True)
+        with autograd.record():
+            loss = SoftmaxCrossEntropyLoss()(tnet(_t(x)), _t(y))
+        loss.backward(torch.ones_like(loss))
+        getattr(ttrainer, step)(4, ignore_stale_grad=True)
+        for jp, tp in zip(jnet.collect_params().values(),
+                          tnet.parameters()):
+            np.testing.assert_allclose(tp.detach().numpy(),
+                                       jp.data().asnumpy(), rtol=OPT_RTOL,
+                                       atol=OPT_ATOL)
+
+
 def test_trainer_states_round_trip(tmp_path):
     rng = np.random.RandomState(7)
     _, tnet = _dense_pair(rng)
