@@ -51,7 +51,15 @@ no copy of a KV pool), the same traffic in static batches
 (``decode_handoff``), chunked prefill with the prefix cache and
 speculative decoding (``decode_prefix_spec``), and a 2-layer copy against
 the CPU (``decode_vs_cpu``).  Its attention is plain torch ops, as the
-JAX package's is jnp: flash_attention launches 0 times there.
+JAX package's is jnp: flash_attention launches 0 times there.  Then the
+saved-model phases (``exported_*``), and the serving tier: the full-width
+LM behind a ``FleetRouter`` of two ModelServers, one killed under load
+and a joining one re-warmed (``fleet_serve``, through the kernel); a
+decode fleet drained mid-traffic, its streams handed off
+(``fleet_decode``); the disaggregated prefill/decode pair against a
+colocated fleet under open-loop arrivals (``disagg``); and a live weight
+swap from manifest-committed checkpoints by a ``DeploymentController``
+(``deploy``).
 
     python3 chip_smoke.py
 
@@ -64,6 +72,7 @@ that line.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import re
 import subprocess
@@ -153,6 +162,26 @@ EXP_DEC_LAYERS = 2
 EXP_DEC_ENGINE = dict(max_slots=8, block_size=16, max_prompt_len=128,
                       max_new_tokens=32, max_queue=64)
 EXP_DEC_TRAFFIC = (16, (8, 128), (8, 32))
+# the serving tier: fleet_serve's replicas, the answers after which one
+# of them is killed and the requests sent again after the join;
+# fleet_decode's streams (DEC_TRAFFIC's ranges); the
+# disaggregated pair's arrivals, prefill chunk, tenant mix and the SLOs of
+# tools/serve_bench.py's disagg profile (TTFT, TPOT ms; :1874-1877);
+# deploy's arrivals, the arrival at which the controller polls, and its
+# traffic's ranges (prompt lengths, new tokens); the sampled streams'
+# settings (every 4th stream, each with a seed of its own)
+FLEET_REPLICAS = 2
+FLEET_KILL_AFTER = 6
+FLEET_PROBES = 4
+FLEET_DEC_STREAMS = 32
+DISAGG_ARRIVALS = 32
+DISAGG_CHUNK = 64
+DISAGG_TENANTS = {"free": 1, "paid": 3}
+DISAGG_SLO_MS = (250.0, 150.0)
+DEPLOY_ARRIVALS = 48
+DEPLOY_AT = 10
+DEPLOY_TRAFFIC = ((16, 256), (16, 64))
+SAMPLED = dict(temperature=0.8, top_k=64, top_p=0.95)
 
 # published peaks by card (NVIDIA data sheets, dense): fp32 on CUDA cores,
 # TF32 and bf16 on tensor cores in FLOP/s, memory bandwidth in bytes/s
@@ -479,12 +508,14 @@ def serve(cuda_ops, dev, card):
         per_replay = {}
         for T in SERVE_LENGTHS:
             batch = [np.zeros((1, T), np.int32)] * 2
-            per_replay[T] = kernel_count(device_profile(
-                lambda: model.execute(batch))[1])
+            per_replay[T] = replayed_launches(
+                lambda: model.execute(batch))[0]
     finally:
         server.stop()
     if cuda_ops.flash_attention.launches != eager_launches:
         fail("serve: a graph replay called the kernel's wrapper")
+    # the single server's answers, which fleet_serve's are held to
+    REFS["served"] = [r.output for r in results]
     statuses = [r.status for r in results]
     if statuses.count(serving.OK) != len(requests):
         fail("not every request OK: %s" % [(r.status, r.error)
@@ -2271,6 +2302,23 @@ def kernel_count(kernels, tag="flash_attention_fwd"):
     return sum(n for k, n in kernels.items() if tag in k)
 
 
+def replayed_launches(fn, want=None):
+    """(kernel launches, device ms, {kernel: launches}) that torch.profiler
+    sees in one call of ``fn``, a graph replay that should launch the
+    kernel ``want`` times (default DEPTH, once a layer).  CUPTI can drop a
+    kernel at the edge of a trace window (two runs on an H100 each saw 11
+    of a replay's 12, once), so a count other than ``want`` is traced
+    again, three traces in all; a graph that launches another number
+    shows it in every trace, and the caller fails on it."""
+    want = DEPTH if want is None else want
+    for _ in range(3):
+        device_ms, kernels = device_profile(fn)
+        seen = kernel_count(kernels)
+        if seen == want:
+            break
+    return seen, device_ms, kernels
+
+
 def state_diff(a, b):
     """Names of the arrays of two state dicts that are not bit-equal."""
     return [n for n in a if not torch.equal(a[n], b[n])]
@@ -2359,9 +2407,8 @@ def hybrid_lm_train(cuda_ops, dev, card):
                  (want[differ[0]] - got[differ[0]]).abs().max())))
     del want
     x, y = batches[0]
-    device_ms, kernels = device_profile(
+    seen, device_ms, kernels = replayed_launches(
         lambda: forward_backward(net, ce, x, y, pos))
-    seen = kernel_count(kernels)
     if seen != DEPTH:
         fail("hybrid_lm_train: the profiler saw the kernel %d times in one "
              "replayed step, not %d" % (seen, DEPTH))
@@ -3278,8 +3325,8 @@ def exported_serve(cuda_ops, dev, card, workdir):
         per_replay = {}
         for T in SERVE_LENGTHS:
             batch = [np.zeros((1, T), np.int32)] * 2
-            per_replay[T] = kernel_count(device_profile(
-                lambda: model.execute(batch))[1])
+            per_replay[T] = replayed_launches(
+                lambda: model.execute(batch))[0]
     finally:
         server.stop()
     if cuda_ops.flash_attention.launches != eager_launches:
@@ -3506,6 +3553,685 @@ def exported_phases(cuda_ops, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the serving tier (serving/fleet.py, disagg/, traffic.py, deploy.py)
+# ---------------------------------------------------------------------------
+
+def sampling_of(i):
+    """Every 4th stream seeded-sampled, the others greedy."""
+    return dict(SAMPLED, seed=1000 + i) if i % 4 == 3 else {}
+
+
+ENGINE_IDS = itertools.count()
+
+
+def named_engines(build):
+    """A fleet's engine factory over ``build(name)``: each engine gets a
+    name of its own (the fleet's name and a count shared by the whole
+    run), so that its ``kv:<name>`` accounting region is its own across
+    replicas, tiers and generations."""
+    return lambda name: build("%s#%d" % (name, next(ENGINE_IDS)))
+
+
+def whole_set_pool(n):
+    """DEC_ENGINE with a KV pool that holds ``n`` worst-case streams at
+    once, as tools/serve_bench.py's fleet-decode, disagg and deploy
+    profiles size theirs (:329-333): a survivor, a decode tier or a
+    retiring sink then always has the blocks a handoff reserves, and the
+    handoff itself is what the phase tests."""
+    per_stream = -(-(DEC_ENGINE["max_prompt_len"]
+                     + DEC_ENGINE["max_new_tokens"])
+                   // DEC_ENGINE["block_size"])
+    return dict(DEC_ENGINE, num_blocks=n * per_stream + 1)
+
+
+def warm_state(engine, dev):
+    """(captures, signature misses) of a fleet engine's warmup: every
+    signature captured once on the card (none on the CPU)."""
+    warm = engine.warmup_report
+    want = warm["signatures"] if dev.type == "cuda" else 0
+    if warm["compiles"] != warm["signatures"] or warm["captures"] != want:
+        fail("%s: warmup %s" % (engine.name, warm))
+    return warm["captures"], warm["cache"]["misses"]
+
+
+def engines_whole(label, engines, warm):
+    """No capture after warmup, every KV block back and each engine's
+    accounting region empty, for every engine of a phase (``warm``: name
+    -> its warm_state)."""
+    from mxnet_tpu_torch import memory_accounting
+
+    regions = memory_accounting.memory_counters()
+    for eng in engines:
+        decode_checks(eng, "%s %s" % (label, eng.name), *warm[eng.name])
+        live = regions.get("kv:%s" % eng.name, {}).get("live_bytes", 0)
+        if live:
+            fail("%s: %s's accounting region holds %d bytes after the "
+                 "traffic" % (label, eng.name, live))
+
+
+def conserved(stats):
+    return stats["requests"] == (stats["ok"] + stats["timeouts"]
+                                 + stats["errors"] + stats["unavailable"])
+
+
+def references(engine, prompts, budgets):
+    """``generate_reference`` of every request (sampled ones replayed from
+    their seeds)."""
+    return [engine.generate_reference(p, b, **sampling_of(i)).tolist()
+            for i, (p, b) in enumerate(zip(prompts, budgets))]
+
+
+def fleet_serve(cuda_ops, dev, card):
+    """Phase: ``serve``'s LM (seed 0: the same weights) behind a
+    FleetRouter of FLEET_REPLICAS ModelServers on ``serve``'s ladder and
+    lengths.  Four clients send ``lm_requests()`` through
+    ``router.predict``.  After FLEET_KILL_AFTER answers one replica is
+    paused until a request waits on it, then killed (``kill_replica``):
+    that request fails over.  A replica then joins (``add_replica``) and
+    the rebalance re-warms a copy on it while the clients keep going.
+    Once the fleet has converged, FLEET_PROBES of the requests go again,
+    one at a time, so the round robin reaches the joined copy.  Every
+    request OK, the fleet's counts conserved, one death and at least one
+    failover, each answer within ``serve``'s bound of the single
+    server's, captures only at each copy's warmup (the joining copy's
+    included), the joined copy serving, and the kernel in every replayed
+    batch.  Returns the kernel's launches here."""
+    from mxnet_tpu_torch import serving
+
+    single = REFS.pop("served")
+    net = new_lm(dev, DEPTH, 0)
+    requests = lm_requests()
+    router = serving.FleetRouter(replicas=FLEET_REPLICAS)
+    reset_launches(cuda_ops)
+    try:
+        t0 = time.time()
+        router.load_model(
+            "lm", net, input_shapes=[((T,), (T,)) for T in SERVE_LENGTHS],
+            replicas=FLEET_REPLICAS, dtype=("int32", "int32"),
+            batch_ladder=list(LADDER), linger_ms=20.0, max_queue=64,
+            device=dev)
+        load_s = time.time() - t0
+        placed = router.stats()["models"]["lm"]["placement"]
+        copies = {rid: router.server(rid)._registry.get("lm")
+                  for rid in placed}
+        victim = placed[0]
+        results = [None] * len(requests)
+        spans = [None] * len(requests)
+        lock = threading.Lock()
+        answered = [0]
+        enough = threading.Event()
+
+        def client(worker):
+            for i in range(worker, len(requests), 4):
+                t = time.time()
+                results[i] = router.predict("lm", requests[i],
+                                            timeout_ms=120000)
+                spans[i] = (t, time.time())
+                with lock:
+                    answered[0] += 1
+                    if answered[0] >= FLEET_KILL_AFTER:
+                        enough.set()
+
+        threads = [threading.Thread(target=client, args=(w,))
+                   for w in range(4)]
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        if not enough.wait(300):
+            fail("fleet_serve: %d answers in 300 s" % answered[0])
+        # the paused batcher finishes the batch it holds; once every
+        # request it admitted and has not answered is in its queue, those
+        # requests can only end by the kill
+        router.server(victim).pause("lm")
+        deadline = time.time() + 120
+        while True:
+            vs = copies[victim].stats.snapshot()
+            waiting = vs["requests"] - (vs["ok"] + vs["timeouts"]
+                                        + vs["errors"] + vs["unavailable"])
+            if vs["queue_depth"] and waiting == vs["queue_depth"]:
+                break
+            if time.time() > deadline:
+                fail("fleet_serve: no request waited on the paused replica")
+            time.sleep(0.001)
+        t_kill = time.time()
+        router.kill_replica(victim)
+        kill_s = time.time() - t_kill
+        t_join = time.time()
+        joined = router.add_replica()
+        join_s = time.time() - t_join
+        if not router.wait_converged(timeout_s=120.0):
+            fail("fleet_serve: the fleet did not converge after the join")
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            fail("fleet_serve: client threads did not finish")
+        wall = max(b for _, b in spans) - t0
+        probes = [router.predict("lm", requests[i], timeout_ms=120000)
+                  for i in range(FLEET_PROBES)]
+        snap = router.stats()
+        health = router.health("lm")
+        copies[joined] = router.server(joined)._registry.get("lm")
+        caps = {rid: m.capture_stats() for rid, m in copies.items()}
+        batches = {rid: m.stats.snapshot()["batches"]
+                   for rid, m in copies.items()}
+        warm = {rid: m.warmup_report["signatures"]
+                for rid, m in copies.items()}
+        eager_launches = cuda_ops.flash_attention.launches
+        per_replay = None
+        if dev.type == "cuda":
+            batch = [np.zeros((1, SERVE_LENGTHS[0]), np.int32)] * 2
+            per_replay = replayed_launches(
+                lambda: copies[joined].execute(batch))[0]
+    finally:
+        router.stop()
+    answers = results + probes
+    bad = [(i, r.status, r.error) for i, r in enumerate(answers)
+           if r is None or r.status != serving.OK]
+    if bad:
+        fail("fleet_serve: requests not OK: %s" % bad)
+    if not conserved(snap):
+        fail("fleet_serve: counts not conserved: %s" % snap)
+    if snap["replica_deaths"] != 1 or snap["failovers"] < 1:
+        fail("fleet_serve: %d deaths and %d failovers, not 1 and >= 1"
+             % (snap["replica_deaths"], snap["failovers"]))
+    if health != serving.HEALTHY or sorted(
+            snap["models"]["lm"]["placement"]) != sorted(
+            [r for r in placed if r != victim] + [joined]):
+        fail("fleet_serve: the fleet ended %s on %s" % (
+            health, snap["models"]["lm"]["placement"]))
+    worst = 0.0
+    for i, (r, want) in enumerate(zip(answers, single + single)):
+        if r.output.shape != want.shape:
+            fail("fleet_serve: request %d gave %s, the single server %s"
+                 % (i, r.output.shape, want.shape))
+        worst = max(worst, float(np.abs(r.output - want).max()))
+        if not np.allclose(r.output, want, atol=SERVE_ATOL,
+                           rtol=SERVE_RTOL):
+            fail("fleet_serve: request %d lies %.3g from the single "
+                 "server's answer" % (i, float(np.abs(r.output - want)
+                                               .max())))
+    if not batches[joined]:
+        fail("fleet_serve: the joined copy served no batch")
+    want_caps = 1 if dev.type == "cuda" else 0
+    for rid, c in caps.items():
+        if c["captures"] != want_caps * warm[rid] or \
+                c["replays"] != want_caps * (warm[rid] + batches[rid]):
+            fail("fleet_serve: replica %s made %d captures and %d replays "
+                 "for %d signatures and %d batches" % (
+                     rid, c["captures"], c["replays"], warm[rid],
+                     batches[rid]))
+    launches = eager_launches
+    if dev.type == "cuda":
+        if eager_launches != DEPTH * sum(c["eager_runs"]
+                                         for c in caps.values()):
+            fail("fleet_serve: %d eager launches for %d warm-up runs"
+                 % (eager_launches, sum(c["eager_runs"]
+                                        for c in caps.values())))
+        if per_replay != DEPTH:
+            fail("fleet_serve: the profiler saw the kernel %s times in one "
+                 "replay of the joined copy, not %d" % (per_replay, DEPTH))
+        launches += DEPTH * sum(c["replays"] for c in caps.values())
+        if not launches:
+            fail("fleet_serve launched flash_attention 0 times")
+    lat = [r.latency_ms for r in results]
+    rewarm = [r.latency_ms for r, (a, b) in zip(results, spans)
+              if a < t_join + join_s and b > t_join]
+    other = [r.latency_ms for r, (a, b) in zip(results, spans)
+             if not (a < t_join + join_s and b > t_join)]
+    tokens = sum(len(tok) for tok, _ in requests)
+    phase("fleet_serve", replicas=FLEET_REPLICAS, probes=FLEET_PROBES,
+          requests=snap["requests"],
+          ok=snap["ok"], failovers=snap["failovers"],
+          replica_deaths=snap["replica_deaths"],
+          rebalances=snap["rebalances"], conserved=True,
+          max_abs_err_vs_single=worst, atol=SERVE_ATOL, rtol=SERVE_RTOL,
+          captures=json.dumps({r: c["captures"] for r, c in caps.items()}),
+          batches=json.dumps(batches), launches=launches, load_s=load_s,
+          kill_s=kill_s, join_rewarm_s=join_s,
+          p50_ms=float(np.percentile(lat, 50)),
+          p99_ms=float(np.percentile(lat, 99)),
+          during_rewarm_p50_ms=(float(np.median(rewarm)) if rewarm
+                                else None),
+          during_rewarm_requests=len(rewarm),
+          other_p50_ms=float(np.median(other)) if other else None,
+          tokens_per_s=tokens / wall, card='"%s"' % card)
+    return launches
+
+
+def fleet_decode(cuda_ops, dev, card):
+    """Phase: ``load_decode`` of a TinyCausalLM at the bench LM's widths
+    on FLEET_REPLICAS replicas (DEC_ENGINE), FLEET_DEC_STREAMS streams at
+    DEC_TRAFFIC's ranges submitted at once (every 4th seeded-sampled), and
+    one replica drained once half of them have their first token: its
+    live streams hand off to the survivor.  Every stream OK and
+    token-identical to ``generate_reference``, handoffs equal to the
+    drained engine's exports and > 0, nothing fenced, no capture after
+    warmup and no block leaked on either engine, the ledger conserved.
+    Returns the streams a second the fleet sustained."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.serving.decode import DecodeEngine, TinyCausalLM
+
+    reset_launches(cuda_ops)
+    t0 = time.time()
+    model = TinyCausalLM(seed=0, device=dev, **DEC_MODEL)
+    router = serving.FleetRouter(replicas=FLEET_REPLICAS)
+    try:
+        router.load_decode("lm", named_engines(
+            lambda name: DecodeEngine(model, name=name, device=dev,
+                                      **whole_set_pool(FLEET_DEC_STREAMS))),
+            replicas=FLEET_REPLICAS)
+        load_s = time.time() - t0
+        placed = router.stats()["decode_models"]["lm"]["placement"]
+        engines = {rid: router.engine("lm", rid) for rid in placed}
+        warm = {e.name: warm_state(e, dev) for e in engines.values()}
+        prompts, budgets = decode_traffic(12, FLEET_DEC_STREAMS,
+                                          *DEC_TRAFFIC[1:])
+        t0 = time.time()
+        streams = [router.submit_stream(
+            "lm", p, max_new_tokens=b, timeout_ms=600000, **sampling_of(i))
+            for i, (p, b) in enumerate(zip(prompts, budgets))]
+        deadline = time.time() + 300
+        while sum(1 for s in streams if s.tokens()) < len(streams) // 2:
+            if time.time() > deadline:
+                fail("fleet_decode: half the streams had no token in 300 s")
+            time.sleep(0.001)
+        victim = placed[0]
+        t_drain = time.time()
+        router.drain(victim)
+        drain_s = time.time() - t_drain
+        for s in streams:
+            if not s.wait(900):
+                fail("fleet_decode: a stream never ended")
+        wall = time.time() - t0
+        ledger = router.decode_stats.snapshot()
+        exported = engines[victim].stats_snapshot()["handed_off"]
+        requests = {rid: e.stats_snapshot()["requests"]
+                    for rid, e in engines.items()}
+        t0 = time.time()
+        ref = DecodeEngine(model, name="fleet_decode_ref", device=dev,
+                           warmup=False, **DEC_ENGINE)
+        try:
+            refs = references(ref, prompts, budgets)
+        finally:
+            ref.stop()
+        ref_s = time.time() - t0
+        engines_whole("fleet_decode", engines.values(), warm)
+    finally:
+        router.stop()
+    bad = [(i, s.status, s.error) for i, s in enumerate(streams)
+           if s.status != "OK"]
+    if bad:
+        fail("fleet_decode: streams not OK: %s" % bad[:5])
+    wrong = [i for i, (s, r) in enumerate(zip(streams, refs))
+             if s.tokens() != r]
+    if wrong:
+        fail("fleet_decode: %d streams differ from their references, "
+             "first %d" % (len(wrong), wrong[0]))
+    if not conserved(ledger):
+        fail("fleet_decode: the ledger is not conserved: %s" % ledger)
+    if ledger["handoffs"] != exported or not exported or ledger["fenced"]:
+        fail("fleet_decode: %d handoffs for %d streams exported by the "
+             "drained replica, %d fenced" % (ledger["handoffs"], exported,
+                                             ledger["fenced"]))
+    if cuda_ops.flash_attention.launches:
+        fail("fleet_decode launched flash_attention")
+    numbers = stream_numbers(streams, wall)
+    phase("fleet_decode", replicas=FLEET_REPLICAS, streams=len(streams),
+          ok=ledger["ok"], sampled=sum(1 for i in range(len(streams))
+                                        if sampling_of(i)),
+          tokens_identical=True, handoffs=ledger["handoffs"],
+          fenced=ledger["fenced"], requests_by_replica=json.dumps(requests),
+          drain_s=drain_s, load_s=load_s, reference_s=ref_s,
+          captures_after_warmup=0, leaked_blocks=0, card='"%s"' % card,
+          **numbers)
+    return len(streams) / wall
+
+
+def open_loop(submit_stream, arrivals, tenants, prompts, budgets,
+              on_submit=None):
+    """Fire one stream at each arrival through ``traffic.replay`` (the
+    open loop: nothing waits on a stream) and wait them all out.
+    Returns the streams, their submit times, the arrivals fired and the
+    wall seconds."""
+    from mxnet_tpu_torch.serving import traffic
+
+    streams = [None] * len(arrivals)
+    submitted = [None] * len(arrivals)
+
+    def submit(i, _t):
+        submitted[i] = time.time()
+        streams[i] = submit_stream(
+            "lm", prompts[i], max_new_tokens=budgets[i], timeout_ms=600000,
+            tenant=tenants[i], **sampling_of(i))
+        if on_submit is not None:
+            on_submit(i)
+
+    t0 = time.time()
+    fired = traffic.replay(arrivals, submit)
+    for s in streams:
+        if s is None or not s.wait(900):
+            fail("open loop: a stream was not submitted or never ended")
+    return streams, submitted, fired, time.time() - t0
+
+
+def leg_numbers(streams, wall):
+    """Per-leg figures: statuses, TTFT/TPOT p50/p99 over the OK streams,
+    and goodput under the disagg profile's SLOs (no limit is held)."""
+    from mxnet_tpu_torch.serving.stats import goodput_under_slo
+
+    statuses = {}
+    for s in streams:
+        statuses[s.status] = statuses.get(s.status, 0) + 1
+    good = goodput_under_slo(
+        [{"status": s.status, "ttft_ms": s.ttft_ms,
+          "latency_ms": s.latency_ms, "tokens": len(s.tokens())}
+         for s in streams], slo_ttft_ms=DISAGG_SLO_MS[0],
+        slo_tpot_ms=DISAGG_SLO_MS[1])
+    return {"statuses": json.dumps(statuses),
+            "ttft_p50_ms": good["ttft_ms"]["p50"],
+            "ttft_p99_ms": good["ttft_ms"]["p99"],
+            "tpot_p50_ms": good["tpot_ms"]["p50"],
+            "tpot_p99_ms": good["tpot_ms"]["p99"],
+            "goodput": good["good"], "goodput_per_s": good["good"] / wall,
+            "tokens_per_s": sum(len(s.tokens()) for s in streams) / wall}
+
+
+def check_leg(label, arrivals, fired, streams, refs):
+    if not (len(arrivals) == fired == sum(1 for s in streams
+                                          if s.status is not None)):
+        fail("%s: %d arrivals, %d fired, %d terminal" % (
+            label, len(arrivals), fired,
+            sum(1 for s in streams if s.status is not None)))
+    wrong = [i for i, (s, r) in enumerate(zip(streams, refs))
+             if s.status == "OK" and s.tokens() != r]
+    if wrong:
+        fail("%s: %d OK streams differ from their references, first %d"
+             % (label, len(wrong), wrong[0]))
+
+
+def disagg(cuda_ops, dev, card, rate):
+    """Phase: the disaggregated pair, a prefill tier of one
+    ``prefill_only`` engine (chunks of DISAGG_CHUNK) and a decode tier of
+    one engine, at the bench LM's widths, under an open-loop Poisson trace
+    of about DISAGG_ARRIVALS arrivals at ``rate`` (half what
+    ``fleet_decode`` sustained), tenants drawn from DISAGG_TENANTS, every
+    4th stream seeded-sampled; then the same trace through a colocated
+    fleet of two full engines.  On both legs: every arrival fired and
+    terminal, every OK stream equal to ``generate_reference``, no capture
+    after warmup and no block leaked; on the pair, one handoff for each
+    stream the prefill tier admitted.  TTFT/TPOT, handoff ms and goodput
+    under the disagg profile's SLOs are reported with no limit."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.serving import traffic
+    from mxnet_tpu_torch.serving.decode import DecodeEngine, TinyCausalLM
+    from mxnet_tpu_torch.serving.disagg import DisaggRouter
+
+    reset_launches(cuda_ops)
+    model = TinyCausalLM(seed=0, device=dev, **DEC_MODEL)
+    arrivals = traffic.poisson_trace(rate, DISAGG_ARRIVALS / rate, seed=0)
+    kw = dict(whole_set_pool(len(arrivals)), prefill_chunk=DISAGG_CHUNK)
+    full = named_engines(lambda name: DecodeEngine(model, name=name,
+                                                   device=dev, **kw))
+    tenants = traffic.tenant_mix(arrivals, DISAGG_TENANTS, seed=1)
+    prompts, budgets = decode_traffic(13, len(arrivals), *DEC_TRAFFIC[1:])
+    t0 = time.time()
+    ref = DecodeEngine(model, name="disagg_ref", device=dev, warmup=False,
+                       prefill_chunk=DISAGG_CHUNK, **DEC_ENGINE)
+    try:
+        refs = references(ref, prompts, budgets)
+    finally:
+        ref.stop()
+    ref_s = time.time() - t0
+    legs = {}
+
+    t0 = time.time()
+    pair = DisaggRouter(prefill_replicas=1, decode_replicas=1)
+    try:
+        pair.load("lm", named_engines(lambda name: DecodeEngine(
+            model, name=name, device=dev, prefill_only=True, **kw)), full)
+        load_s = time.time() - t0
+        engines = [tier.engine("lm", rid) for tier in (pair.prefill,
+                                                       pair.decode)
+                   for rid in tier.stats()["decode_models"]["lm"][
+                       "placement"]]
+        warm = {e.name: warm_state(e, dev) for e in engines}
+        streams, _, fired, wall = open_loop(pair.submit_stream, arrivals,
+                                            tenants, prompts, budgets)
+        ledger = pair.prefill.decode_stats.snapshot()
+        hand = pair.stats()["disagg"]
+        engines_whole("disagg", engines, warm)
+    finally:
+        pair.stop()
+    check_leg("disagg", arrivals, fired, streams, refs)
+    if not conserved(ledger):
+        fail("disagg: the ledger is not conserved: %s" % ledger)
+    if hand["handoffs"] != ledger["requests"] or hand["handoff_failures"]:
+        fail("disagg: %d handoffs (%d failed) for %d streams admitted to "
+             "prefill" % (hand["handoffs"], hand["handoff_failures"],
+                          ledger["requests"]))
+    legs["disagg"] = dict(leg_numbers(streams, wall), load_s=load_s,
+                          handoffs=hand["handoffs"],
+                          handoff_p50_ms=hand["handoff_ms"]["p50"],
+                          handoff_p99_ms=hand["handoff_ms"]["p99"])
+
+    t0 = time.time()
+    router = serving.FleetRouter(replicas=2)
+    try:
+        router.load_decode("lm", full, replicas=2)
+        load_s = time.time() - t0
+        engines = [router.engine("lm", rid) for rid in
+                   router.stats()["decode_models"]["lm"]["placement"]]
+        warm = {e.name: warm_state(e, dev) for e in engines}
+        streams, _, fired, wall = open_loop(router.submit_stream, arrivals,
+                                            tenants, prompts, budgets)
+        ledger = router.decode_stats.snapshot()
+        engines_whole("disagg colocated", engines, warm)
+    finally:
+        router.stop()
+    check_leg("disagg colocated", arrivals, fired, streams, refs)
+    if not conserved(ledger) or ledger["handoffs"]:
+        fail("disagg colocated: ledger %s" % ledger)
+    legs["colocated"] = dict(leg_numbers(streams, wall), load_s=load_s)
+    if cuda_ops.flash_attention.launches:
+        fail("disagg launched flash_attention")
+    phase("disagg", arrivals=len(arrivals), rate_hz=rate,
+          tenants=json.dumps({t: tenants.count(t) for t in DISAGG_TENANTS}),
+          references_equal=True, reference_s=ref_s,
+          slo_ms=json.dumps(DISAGG_SLO_MS),
+          disagg=json.dumps(legs["disagg"]),
+          colocated=json.dumps(legs["colocated"]), card='"%s"' % card)
+
+
+def deploy(cuda_ops, dev, card, rate):
+    """Phase: a live weight swap.  Generations 1 and 2 of a TinyCausalLM
+    at the bench LM's widths (seeds 0 and 1) are written by
+    ``model.save_checkpoint`` with the manifest into a temporary prefix
+    before any traffic (the 330 MB writes sit outside every timed
+    window); a DeploymentController over a 2-replica decode fleet
+    (builder: ``TinyCausalLM(params=arg_params)``) boots it with
+    ``deploy(1)``.  An open-loop Poisson trace of about DEPLOY_ARRIVALS
+    arrivals at ``rate`` runs, and at arrival DEPLOY_AT the controller's
+    ``poll()`` finds generation 2 and rolls it across the live fleet;
+    four probes follow the swap.  Every arrival and probe OK, the ledger
+    conserved, each OK stream equal to exactly one generation's
+    reference (none torn, both seen, the probes on generation 2), no
+    capture after warmup on the retired and the new engines, no block
+    leaked on any engine.  The swap's seconds, captures per replica,
+    handoffs and fences, and TTFT p99 inside the swap window against
+    outside it, are reported with no limit."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import model as model_io
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.serving import deploy as deploy_io
+    from mxnet_tpu_torch.serving import traffic
+    from mxnet_tpu_torch.serving.decode import DecodeEngine, TinyCausalLM
+
+    reset_launches(cuda_ops)
+
+    def build(srv_name, arg_params, aux_params, generation):
+        lm = TinyCausalLM(params=arg_params, device=dev, **DEC_MODEL)
+        return DecodeEngine(lm, name="%s#%d" % (srv_name, next(ENGINE_IDS)),
+                            generation=generation, device=dev, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "tiny_lm")
+        t0 = time.time()
+        for epoch, seed in ((1, 0), (2, 1)):
+            lm = TinyCausalLM(seed=seed, device="cpu", **DEC_MODEL)
+            model_io.save_checkpoint(prefix, epoch, mx.sym.var("data"),
+                                     lm.param_dict(), {})
+        del lm
+        write_s = time.time() - t0
+        if model_io.latest_complete_checkpoint(prefix) != 2:
+            fail("deploy: the manifest does not name generation 2")
+        arrivals = traffic.poisson_trace(rate, DEPLOY_ARRIVALS / rate,
+                                         seed=1)
+        prompts, budgets = decode_traffic(14, len(arrivals),
+                                          *DEPLOY_TRAFFIC)
+        kw = whole_set_pool(len(arrivals) + 4)
+        t0 = time.time()
+        refs = {}
+        for epoch in (1, 2):
+            _, args, _ = model_io.load_checkpoint(prefix, epoch, ctx=dev)
+            ref = DecodeEngine(TinyCausalLM(params=args, device=dev,
+                                            **DEC_MODEL),
+                               name="deploy_ref%d" % epoch, device=dev,
+                               warmup=False, **DEC_ENGINE)
+            try:
+                refs[epoch] = references(ref, prompts, budgets)
+            finally:
+                ref.stop()
+        del args, ref
+        ref_s = time.time() - t0
+
+        t0 = time.time()
+        _, args, _ = model_io.load_checkpoint(prefix, 1, ctx=dev)
+        boot_lm = TinyCausalLM(params=args, device=dev, **DEC_MODEL)
+        router = serving.FleetRouter(replicas=2)
+        try:
+            router.load_decode("lm", named_engines(
+                lambda name: DecodeEngine(boot_lm, name=name, device=dev,
+                                          **kw)), replicas=2)
+            placed = router.stats()["decode_models"]["lm"]["placement"]
+            boot = [router.engine("lm", rid) for rid in placed]
+            ctl = deploy_io.DeploymentController(
+                router, prefix, engines={"lm": build}, ctx=dev)
+            first = ctl.deploy(1)
+            if first["status"] != "deployed":
+                fail("deploy: booting generation 1 gave %s" % first)
+            boot_s = time.time() - t0
+            old = [router.engine("lm", rid) for rid in placed]
+            warm = {e.name: warm_state(e, dev) for e in boot + old}
+            swap = {}
+            trigger = threading.Event()
+
+            def swapper():
+                if not trigger.wait(600):
+                    return
+                swap["t0"] = time.time()
+                try:
+                    swap["report"] = ctl.poll()
+                except Exception as exc:
+                    swap["error"] = "%s: %s" % (type(exc).__name__, exc)
+                swap["t1"] = time.time()
+
+            thread = threading.Thread(target=swapper, daemon=True)
+            thread.start()
+            streams, submitted, fired, wall = open_loop(
+                router.submit_stream, arrivals,
+                ["default"] * len(arrivals), prompts, budgets,
+                on_submit=lambda i: i + 1 == DEPLOY_AT and trigger.set())
+            thread.join(600)
+            if "error" in swap or thread.is_alive():
+                fail("deploy: the swap failed: %s" % swap.get(
+                    "error", "still running"))
+            report = swap["report"]
+            if report is None or report["status"] != "deployed" \
+                    or report["generation"] != 2:
+                fail("deploy: the swap reported %s" % report)
+            probes = [router.submit_stream("lm", prompts[i],
+                                           max_new_tokens=budgets[i],
+                                           timeout_ms=600000,
+                                           **sampling_of(i))
+                      for i in range(4)]
+            for s in probes:
+                if not s.wait(900):
+                    fail("deploy: a probe never ended")
+            deadline = time.time() + 10
+            while not conserved(router.decode_stats.snapshot()) \
+                    and time.time() < deadline:
+                time.sleep(0.005)
+            ledger = router.decode_stats.snapshot()
+            new = [router.engine("lm", rid) for rid in placed]
+            warm.update({e.name: warm_state(e, dev) for e in new})
+            gens = [e.generation for e in new]
+            engines_whole("deploy", boot + old + new, warm)
+            deploy_state = router.stats()["deploy"]
+        finally:
+            router.stop()
+    bad = [(i, s.status, s.error) for i, s in enumerate(streams + probes)
+           if s.status != "OK"]
+    if bad or fired != len(arrivals):
+        fail("deploy: %d fired of %d; streams not OK: %s"
+             % (fired, len(arrivals), bad[:5]))
+    if not conserved(ledger):
+        fail("deploy: the ledger is not conserved: %s" % ledger)
+    if gens != [2, 2] or deploy_state["generation"] != 2 \
+            or deploy_state["retiring"]:
+        fail("deploy: the fleet ended on %s (%s)" % (gens, deploy_state))
+    seen, torn = {1: 0, 2: 0}, []
+    for i, s in enumerate(streams):
+        toks = s.tokens()
+        hits = [g for g in (1, 2) if toks == refs[g][i]]
+        if len(hits) != 1:
+            torn.append(i)
+        else:
+            seen[hits[0]] += 1
+    if any(s.tokens() != refs[2][i] for i, s in enumerate(probes)):
+        fail("deploy: a probe after the swap differs from generation 2")
+    if torn or not seen[1] or seen[2] + len(probes) == 0:
+        fail("deploy: streams %s match no single generation; seen %s"
+             % (torn[:5], seen))
+    t_sw0, t_sw1 = swap["t0"], swap["t1"]
+    inside = [s.ttft_ms for s, t in zip(streams, submitted)
+              if t_sw0 <= t <= t_sw1]
+    outside = [s.ttft_ms for s, t in zip(streams, submitted)
+               if not t_sw0 <= t <= t_sw1]
+    if cuda_ops.flash_attention.launches:
+        fail("deploy launched flash_attention")
+    phase("deploy", arrivals=len(arrivals), rate_hz=rate, probes=len(probes),
+          generation_1_streams=seen[1], generation_2_streams=seen[2],
+          torn=0, conserved=True, write_s=write_s, boot_s=boot_s,
+          reference_s=ref_s, swap_s=t_sw1 - t_sw0,
+          controller_swap_ms=report["swap_ms"],
+          warmup_captures=json.dumps({e.name: e.warmup_report["captures"]
+                                      for e in new}),
+          handoffs=report["handoffs"], fenced=report["fenced"],
+          in_swap_streams=len(inside),
+          ttft_p50_in_swap_ms=(float(np.percentile(inside, 50))
+                               if inside else None),
+          ttft_p99_in_swap_ms=(float(np.percentile(inside, 99))
+                               if inside else None),
+          ttft_p50_outside_ms=float(np.percentile(outside, 50)),
+          ttft_p99_outside_ms=float(np.percentile(outside, 99)),
+          captures_after_warmup=0, leaked_blocks=0,
+          wall_s=wall, card='"%s"' % card)
+
+
+def serving_tier_phases(cuda_ops, dev, card):
+    """The serving tier's four phases; returns the kernel's launches
+    (``fleet_serve``'s: the others serve the decode model, which
+    launches none)."""
+    launches = fleet_serve(cuda_ops, dev, card)
+    rate = fleet_decode(cuda_ops, dev, card) / 2
+    disagg(cuda_ops, dev, card, rate)
+    deploy(cuda_ops, dev, card, rate)
+    return launches
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -3582,13 +4308,14 @@ def main():
 
     launches_decode = decode_phases(cuda_ops, dev, smi)
     launches_exported = exported_phases(cuda_ops, dev, smi)
+    launches_fleet = serving_tier_phases(cuda_ops, dev, smi)
 
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
               "replaces": "mxnet_tpu/ops/pallas_ops.py:54",
               "launches": launches_serve + launches_train
               + launches_train_bf16 + launches_nd + launches_functional
-              + launches_hybrid + launches_exported,
+              + launches_hybrid + launches_exported + launches_fleet,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
               "launches_hybrid_train": launches_hybrid,
@@ -3596,7 +4323,8 @@ def main():
               "launches_nd": launches_nd,
               "launches_functional": launches_functional,
               "launches_decode": launches_decode,
-              "launches_exported": launches_exported}
+              "launches_exported": launches_exported,
+              "launches_fleet": launches_fleet}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

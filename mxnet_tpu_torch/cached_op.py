@@ -41,7 +41,16 @@ the current stream), so a captured forward is bitwise its eager self.
 - **Threads.** Captures and replays of one op run under its lock, and a
   capture checks only its own thread's CUDA calls
   (``capture_error_mode="thread_local"``), so other threads' work on the
-  card cannot break it.
+  card cannot break it.  Captures of all ops in the process take turns
+  (``_CAPTURE_LOCK``): entering a capture synchronizes the whole device
+  and empties the allocator's cache, and a device-wide synchronize while
+  another thread's capture is open would invalidate that capture.  Other
+  threads keep replaying meanwhile (a serving fleet warms a joining copy
+  beside live ones); they synchronize only their own streams.  Python's
+  cycle collector is held off during a capture: a collection inside it
+  would destroy dead ops' graphs on the capturing thread, a call the
+  capture forbids, which invalidates it (seen on the card when a fleet's
+  dropped copies were collected during the next engine's warm-up).
 - **The CPU.** A CPU input runs the forward eagerly on every call (the
   tests' device), recording for autograd only under ``autograd.record()``
   as a graph does; the signature counts are kept the same way.
@@ -52,6 +61,8 @@ captured path must be registered with the graph.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 
 import torch
@@ -63,6 +74,23 @@ from .ndarray.ndarray import NDArray
 __all__ = ["CachedOp"]
 
 _WARMUP = 2
+# one capture at a time in the process (see "Threads" above); reentrant,
+# so that a capture begun inside another fails as it would without the
+# lock instead of waiting for itself
+_CAPTURE_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def _collector_held():
+    """Hold the cycle collector off until the block ends (see "Threads"
+    above)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _dtype_name(dtype):
@@ -227,6 +255,12 @@ class CachedOp:
     def _capture(self, training, recording, params, in_vals, grad_params):
         """Warm up, then capture the forward (and, recording, its backward)
         of one signature; raises if the capture fails."""
+        with _CAPTURE_LOCK, _collector_held():
+            return self._capture_locked(training, recording, params,
+                                        in_vals, grad_params)
+
+    def _capture_locked(self, training, recording, params, in_vals,
+                        grad_params):
         device = in_vals[0].device if in_vals else params[0].device
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)

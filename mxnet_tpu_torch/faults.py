@@ -32,8 +32,10 @@ Usage::
         ...  # every thread sees the plan; counters in plan.hits / plan.fired
 
 The port wires ``serving.predict`` (``ServableModel`` and the decode
-engine, before each execution); the other sites are kept in the catalog
-so that plans written for the JAX package load unchanged.
+engine, before each execution), ``checkpoint.*`` (``util.write_atomic``),
+``fleet.replica`` (``serving/fleet.py``) and ``deploy.*``
+(``serving/deploy.py``); the other sites are kept in the catalog so that
+plans written for the JAX package load unchanged.
 """
 from __future__ import annotations
 

@@ -92,15 +92,23 @@ class Module(BaseModule):
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
                         remove_amp_cast=True):
         """Write ``prefix-symbol.json`` and ``prefix-%04d.params`` (and,
-        with ``save_optimizer_states``, ``prefix-%04d.states``)."""
-        self._symbol.save("%s-symbol.json" % prefix)
+        with ``save_optimizer_states``, ``prefix-%04d.states``), each
+        atomically, then commit them together as one entry of
+        ``prefix-manifest.json`` (``model.record_checkpoint``): a crash
+        anywhere leaves the previous complete checkpoint restorable."""
+        from ..model import record_checkpoint
+        symbol_file = "%s-symbol.json" % prefix
+        self._symbol.save(symbol_file)
         param_name = "%s-%04d.params" % (prefix, epoch)
         self.save_params(param_name)
+        files = [symbol_file, param_name]
         logging.info("Saved checkpoint to \"%s\"", param_name)
         if save_optimizer_states:
             state_name = "%s-%04d.states" % (prefix, epoch)
             self.save_optimizer_states(state_name)
+            files.append(state_name)
             logging.info("Saved optimizer state to \"%s\"", state_name)
+        record_checkpoint(prefix, epoch, files)
 
     def _reset_bind(self):
         self.binded = False
@@ -340,8 +348,8 @@ class Module(BaseModule):
         package reads back; a file both packages read is ROADMAP queue 1
         #6)."""
         assert self.optimizer_initialized
-        with open(fname, "wb") as f:
-            f.write(self._updater.get_states())
+        from ..util import write_atomic
+        write_atomic(fname, self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized

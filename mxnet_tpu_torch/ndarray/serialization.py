@@ -22,12 +22,12 @@ of ``ndarray/sparse.py``.
 """
 from __future__ import annotations
 
-import os
 import struct
-import threading
 
 import numpy as np
 import torch
+
+from ..util import write_atomic
 
 __all__ = ["NDARRAY_V1_MAGIC", "NDARRAY_V2_MAGIC", "LIST_MAGIC",
            "serialize_ndarray", "deserialize_ndarray", "save_list",
@@ -123,23 +123,6 @@ def deserialize_ndarray(buf, off):
     return data.reshape(shape).copy(), off + count * dtype.itemsize
 
 
-def _write_atomic(path, data):
-    """Write ``data`` to a sibling temporary file, fsync it, then rename it
-    over ``path``: a crash leaves the old file or the new one, never a torn
-    one."""
-    path = os.fspath(path)
-    tmp = "%s.tmp-%d-%d" % (path, os.getpid(), threading.get_ident())
-    try:
-        with open(tmp, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-
-
 def save_list(fname, arrays, names):
     """Write the ``0x112`` list container of ``arrays`` (and ``names``,
     empty for the list form) to ``fname``, atomically."""
@@ -149,7 +132,7 @@ def save_list(fname, arrays, names):
     for n in names:
         b = n.encode("utf-8")
         out += [struct.pack("<Q", len(b)), b]
-    _write_atomic(fname, b"".join(out))
+    write_atomic(fname, b"".join(out))
 
 
 def load_list(buf):

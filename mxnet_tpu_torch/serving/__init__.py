@@ -4,7 +4,10 @@
 A multi-model, dynamically micro-batched inference server with a fixed
 bucket ladder, per-request deadlines, bounded admission with load-shedding
 backpressure and per-model circuit breakers, serving ``nn.Module``s on a
-CUDA card.
+CUDA card; above it the serving tier: ``FleetRouter`` over replicas (and
+their decode engines), the disaggregated prefill/decode pair
+(``disagg``), open-loop traffic (``traffic``) and live weight swaps from
+manifest-committed checkpoints (``deploy``).
 
     from mxnet_tpu_torch import serving
     server = serving.ModelServer()
@@ -19,9 +22,17 @@ from .registry import ModelRegistry, ServableModel
 from .server import (ModelServer, InferenceResult,
                      OK, TIMEOUT, OVERLOADED, INVALID_INPUT, ERROR,
                      UNAVAILABLE)
+from .fleet import FleetRouter, FleetStats, DecodeFleetStats
+from . import decode
+from . import deploy
+from . import disagg
+from . import traffic
+from .deploy import DeploymentController
 
 __all__ = ["ModelServer", "InferenceResult", "BucketLadder", "Request",
            "MicroBatcher", "ModelRegistry", "ServableModel", "shape_key",
-           "CircuitBreaker", "HEALTHY", "DEGRADED",
+           "CircuitBreaker", "HEALTHY", "DEGRADED", "decode", "deploy",
+           "disagg", "traffic", "DeploymentController",
+           "FleetRouter", "FleetStats", "DecodeFleetStats",
            "OK", "TIMEOUT", "OVERLOADED", "INVALID_INPUT", "ERROR",
            "UNAVAILABLE"]

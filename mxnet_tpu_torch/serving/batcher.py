@@ -234,6 +234,7 @@ class MicroBatcher:
         except Exception as exc:  # model bug: fail the batch, keep serving
             if breaker is not None:
                 breaker.on_failure()
+                self._stats.on_breaker_state(breaker.state())
             for r in batch:
                 if r.complete(ERROR, error=repr(exc)):
                     self._stats.on_result(ERROR, r.latency_ms)
@@ -241,7 +242,10 @@ class MicroBatcher:
         if breaker is not None:
             # success closes a half-open breaker (the probe path) and
             # resets the failure streak
+            was_closed = breaker.state() == "closed"
             breaker.on_success()
+            if not was_closed:
+                self._stats.on_breaker_state(breaker.state())
         batch_ms = (time.monotonic() - t0) * 1e3
         self._stats.on_batch(n, bucket, batch_ms)
         for i, r in enumerate(batch):

@@ -37,7 +37,7 @@ trash block — and ``generate_reference``'s private pair, bound to its own
 ops at its first call and zeroed at every call.  Page copies outside a
 step (``_cow_pages``, ``import_stream``'s restore) run in place on the
 worker thread's stream, ordered with its replays; ``export_stream`` reads
-pages to host numpy after the parked worker synchronized the card.
+pages to host numpy after the parked worker synchronized its stream.
 
 KV memory is a paged block pool (kv_cache.py): admission reserves the
 worst-case block count (shedding OVERLOADED when the pool cannot honor
@@ -612,10 +612,13 @@ class DecodeEngine:
              torch.zeros(shape, device=self.device)), shape)
 
     def _sync(self):
-        """Wait for the card: the engine's pages are then what its last
-        step or copy left."""
+        """Wait for this thread's stream, on which the engine's steps and
+        copies run: the pages are then what its last step or copy left.
+        Not the whole device: another engine or model on the card may be
+        capturing a CUDA graph, which a device-wide synchronize would
+        invalidate."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     # -- warmup ----------------------------------------------------------
     def warmup(self):

@@ -74,6 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from ...context import resolve_device
+from ...ndarray.ndarray import NDArray
 
 __all__ = ["TinyCausalLM"]
 
@@ -126,8 +127,9 @@ class TinyCausalLM:
     ``device`` defaults to ``cuda:0`` (raises without CUDA); pass ``"cpu"``
     to run on the CPU.  The seeded weights are the JAX package's: the same
     ``np.random.RandomState(seed)`` normals in the same order.  ``params``
-    takes ``{name: numpy array or tensor}`` (the JAX package's weights
-    carry across this way), validated against the geometry.
+    takes ``{name: numpy array, tensor or NDArray}`` (the JAX package's
+    weights carry across this way, and a checkpoint's ``arg_params`` from
+    ``model.load_checkpoint``), validated against the geometry.
     """
 
     def __init__(self, vocab_size=48, hidden=32, num_layers=2, num_heads=2,
@@ -171,6 +173,8 @@ class TinyCausalLM:
                 if tuple(arr.shape) != shape:
                     raise ValueError("param %r has shape %r, expected %r"
                                      % (k, tuple(arr.shape), shape))
+                if isinstance(arr, NDArray):
+                    arr = arr._data
                 if not isinstance(arr, torch.Tensor):
                     arr = torch.from_numpy(np.array(arr, np.float32))
                 loaded[k] = arr.to(self.device, torch.float32)

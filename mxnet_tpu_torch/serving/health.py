@@ -1,8 +1,6 @@
 """Per-model health + circuit breaking: the self-healing serving path.
 
-Counterpart of ``mxnet_tpu/serving/health.py``, unchanged in behaviour;
-``CircuitBreaker.reset`` (used only by rolling deploys) waits for that
-slice.
+Counterpart of ``mxnet_tpu/serving/health.py``, unchanged in behaviour.
 
 A model whose backend starts failing must degrade to *fast, retryable*
 rejections instead of queue-then-throw on every request (docs/ROBUSTNESS.md
@@ -22,7 +20,8 @@ has the full state machine).  Classic three-state breaker:
 Health is derived, not stored: ``closed`` with a clean streak is HEALTHY,
 ``closed`` mid-streak or ``half_open`` is DEGRADED, ``open`` is UNAVAILABLE.
 The breaker records outcomes per *batch execution* (the unit that actually
-fails), and every transition is counted for ``ModelServer.stats()``.
+fails), and every transition is counted for ``ModelServer.stats()`` and the
+profiler Domain counters in stats.py.
 """
 from __future__ import annotations
 
@@ -140,6 +139,22 @@ class CircuitBreaker:
                 self._open_until = now + self._backoff
                 return True
             return False
+
+    def reset(self):
+        """Forget all failure history: closed, clean streak, base backoff.
+
+        For when the object the breaker guards is replaced rather than
+        recovered (a rolling weight swap retires the copy whose failures
+        were counted, serving/deploy.py): stale history from the old copy
+        neither rejects traffic to the new one nor masks its fresh
+        failures.  The lifetime ``opens``/``rejections`` counters stay
+        (they describe the slot, not the copy)."""
+        with self._lock:
+            self._state = _CLOSED
+            self._consecutive = 0
+            self._backoff = self._base_backoff
+            self._open_until = 0.0
+            self._probe_expire = None
 
     # -- observability ---------------------------------------------------
     def state(self):

@@ -41,10 +41,14 @@ class ServableModel:
 
     def __init__(self, name, block, input_shapes, device, dtype="float32",
                  max_batch=8, batch_ladder=None, breaker_threshold=5,
-                 breaker_backoff_ms=50.0, breaker_max_backoff_ms=2000.0):
+                 breaker_backoff_ms=50.0, breaker_max_backoff_ms=2000.0,
+                 generation=None):
         self.name = name
         self.block = block
         self.device = device
+        # weight generation tag (serving/deploy.py): which checkpoint epoch
+        # this copy's params came from; None = untagged standalone use
+        self.generation = generation
         self.ladder = (batch_ladder if isinstance(batch_ladder, BucketLadder)
                        else BucketLadder(max_batch, batch_ladder))
         self.variants = normalize_shape_variants(input_shapes)
@@ -63,7 +67,7 @@ class ServableModel:
         from ..gluon.block import build_cached_op
         self._cop, params = build_cached_op(block)
         self._params = {n: p._check_and_get() for n, p in params.items()}
-        self.stats = ModelStats()
+        self.stats = ModelStats(name)
         self.breaker = CircuitBreaker(
             failure_threshold=breaker_threshold,
             backoff_s=breaker_backoff_ms / 1e3,

@@ -137,7 +137,8 @@ class ModelServer:
                    max_batch=8, batch_ladder=None, max_queue=64,
                    linger_ms=2.0, default_timeout_ms=None, warmup=True,
                    breaker_threshold=5, breaker_backoff_ms=50.0,
-                   breaker_max_backoff_ms=2000.0, device=None):
+                   breaker_max_backoff_ms=2000.0, generation=None,
+                   device=None):
         """Load an ``nn.Module`` for serving on ``device``.
 
         ``device`` defaults to ``cuda:0`` and raises without CUDA; pass
@@ -173,7 +174,8 @@ class ModelServer:
                               batch_ladder=batch_ladder,
                               breaker_threshold=breaker_threshold,
                               breaker_backoff_ms=breaker_backoff_ms,
-                              breaker_max_backoff_ms=breaker_max_backoff_ms)
+                              breaker_max_backoff_ms=breaker_max_backoff_ms,
+                              generation=generation)
         if warmup:
             model.warmup()
         self._registry.add(model)

@@ -2,14 +2,20 @@
 
 Counterpart of ``mxnet_tpu/serving/stats.py`` (``LatencyWindow`` and
 ``ModelStats``, and the decode-stream helpers ``stream_tpot_ms`` and
-``goodput_under_slo``).  Every event updates plain numeric fields read by
-``ModelServer.stats()`` under a lock.  The JAX package also mirrors the
-batched model's fields into profiler counters; the port does not yet
-(the decode engine's counters do mirror, ``serving/decode/stats.py``).
+``goodput_under_slo``).  Two sinks, one writer: every event updates plain
+numeric fields read by ``ModelServer.stats()`` under a lock, and a
+``serving`` profiler Domain's Counters (``<model>:queue_depth``,
+``:batch_ms``, ``:shed``, ``:breaker_state``, ``:unavailable``), so that a
+``profiler.dump()`` trace shows the server on the same timeline as the op
+spans.  Counter writes are gated on ``profiler.profiling_active()``: each
+``Counter.set_value`` appends a trace event, and an ungated per-request
+write would grow the event buffer without bound in a long-lived server.
 """
 from __future__ import annotations
 
 import threading
+
+from .. import profiler
 
 __all__ = ["ModelStats", "LatencyWindow", "stream_tpot_ms",
            "goodput_under_slo"]
@@ -110,7 +116,7 @@ def goodput_under_slo(rows, slo_ttft_ms=None, slo_tpot_ms=None):
 class ModelStats:
     """All counters for one loaded model.  Thread-safe."""
 
-    def __init__(self):
+    def __init__(self, model_name):
         self._lock = threading.Lock()
         self.requests = 0        # admitted submissions
         self.ok = 0
@@ -133,11 +139,20 @@ class ModelStats:
         self.queue_depth = 0
         self._req_lat = LatencyWindow()
         self._batch_lat = LatencyWindow()
+        domain = profiler.Domain("serving")
+        self._c_queue = domain.new_counter("%s:queue_depth" % model_name)
+        self._c_batch_ms = domain.new_counter("%s:batch_ms" % model_name)
+        self._c_shed = domain.new_counter("%s:shed" % model_name)
+        # breaker state on the same timeline: 0 closed, 1 half-open, 2 open
+        self._c_breaker = domain.new_counter("%s:breaker_state" % model_name)
+        self._c_unavail = domain.new_counter("%s:unavailable" % model_name)
 
     # -- event hooks ----------------------------------------------------
     def on_queue_depth(self, depth):
         with self._lock:
             self.queue_depth = depth
+        if profiler.profiling_active():
+            self._c_queue.set_value(depth)
 
     def on_admitted(self):
         with self._lock:
@@ -146,6 +161,9 @@ class ModelStats:
     def on_shed(self):
         with self._lock:
             self.shed += 1
+            count = self.shed
+        if profiler.profiling_active():
+            self._c_shed.set_value(count)
 
     def on_invalid(self):
         with self._lock:
@@ -161,11 +179,21 @@ class ModelStats:
                 self.unavailable_rejected += 1
             else:
                 self.unavailable += 1
+            count = self.unavailable + self.unavailable_rejected
+        if profiler.profiling_active():
+            self._c_unavail.set_value(count)
 
     def on_retry(self):
         """One transient execute failure absorbed by the retry envelope."""
         with self._lock:
             self.retries += 1
+
+    def on_breaker_state(self, state):
+        """Put a breaker transition on the profiler timeline (the open and
+        rejection counts themselves live in the breaker's snapshot)."""
+        if profiler.profiling_active():
+            self._c_breaker.set_value(
+                {"closed": 0, "half_open": 1, "open": 2}.get(state, 0))
 
     def on_batch(self, n_real, bucket, latency_ms):
         with self._lock:
@@ -173,6 +201,8 @@ class ModelStats:
             self.batched_requests += n_real
             self.padded_rows += bucket - n_real
             self._batch_lat.add(latency_ms)
+        if profiler.profiling_active():
+            self._c_batch_ms.set_value(latency_ms)
 
     def on_result(self, status, latency_ms=None):
         from .server import OK, TIMEOUT, ERROR, UNAVAILABLE

@@ -282,13 +282,10 @@ class Symbol:
                            "attrs": {"mxnet_version": ["int", 10300]}}, indent=2)
 
     def save(self, fname):
-        """Write :meth:`tojson` to ``fname`` atomically (a temporary file,
-        then ``os.replace``)."""
-        import os
-        tmp = "%s.tmp-%d" % (fname, os.getpid())
-        with open(tmp, "w") as f:
-            f.write(self.tojson())
-        os.replace(tmp, fname)
+        """Write :meth:`tojson` to ``fname`` atomically
+        (``util.write_atomic``)."""
+        from ..util import write_atomic
+        write_atomic(fname, self.tojson())
 
     # ------------------------------------------------------------------
     # evaluation / binding
