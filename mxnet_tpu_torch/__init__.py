@@ -22,10 +22,13 @@ package's keys, so ``mx.random.seed(n)`` gives its weights),
 ``save_parameters``) and ``gluon.block.functional_call``; and the
 compiled half: ``CachedOp`` (a forward captured as a CUDA graph per input
 signature), ``HybridBlock.hybridize()``, the compiled train step, ``sym``,
-the executor, ``mod.Module`` and ``callback``.
+the executor, ``mod.Module`` and ``callback``; and ``random``'s draws on
+the card (``Dropout``, ``nd.random``), the rest of Gluon's layers and
+losses, and the vision model zoo.
 """
 from . import autograd, callback, initializer, io, metric, ndarray, random
 from . import lr_scheduler, model, module, optimizer, symbol
+from . import gluon
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -38,4 +41,4 @@ init = initializer   # mx.init.Xavier()
 __all__ = ["MXNetError", "cpu", "gpu", "tpu", "current_context", "metric",
            "nd", "ndarray", "autograd", "random", "initializer", "init",
            "io", "sym", "symbol", "mod", "module", "callback", "model",
-           "optimizer", "lr_scheduler", "AttrScope"]
+           "optimizer", "lr_scheduler", "AttrScope", "gluon"]

@@ -55,9 +55,16 @@ the current stream), so a captured forward is bitwise its eager self.
   tests' device), recording for autograd only under ``autograd.record()``
   as a graph does; the signature counts are kept the same way.
 
-Random ops draw from torch's default generator, whose Philox offset a
-graph advances at each replay; an explicit ``torch.Generator`` on a
-captured path must be registered with the graph.
+- **Keys.** Each call takes one ``random.next_key()`` on the host
+  (``mxnet_tpu/cached_op.py:233``) and runs the forward under
+  ``random.key_override`` of it, so every random op inside splits its key
+  from the call's, as the JAX package's traced forward does.  On the card
+  the key is the graphs' one more input: a static ``int32`` buffer of two
+  words, into which each call copies its key before the replay, and from
+  which the captured forward splits in torch integer ops.  So every replay
+  draws fresh masks, the same as the CPU's eager run from the same
+  ``mx.random.seed``; a recorded call's backward reuses its forward's
+  masks (saved by autograd in the graph), drawing nothing.
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ import threading
 import torch
 
 from . import autograd
+from . import random as _random
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
@@ -109,15 +117,18 @@ class _Graph:
 
 
 class CachedOp:
-    """``CachedOp(forward_fn, param_dict, aux_names=())``.
+    """``CachedOp(forward_fn, param_dict, aux_names=(), draws_key=True)``.
 
     ``forward_fn(params, *inputs)`` takes ``{name: tensor}`` and tensors
     and returns a tensor or a list or tuple of them.  ``param_dict`` is
     ``{name: tensor}`` (the live storage); ``aux_names`` are the
-    parameters the forward writes in training."""
+    parameters the forward writes in training.  ``draws_key=False`` takes
+    no key a call (the executor's graphs, whose random nodes take theirs as
+    an input, as the JAX executor's jitted functions do)."""
 
-    def __init__(self, forward_fn, param_dict, aux_names=()):
+    def __init__(self, forward_fn, param_dict, aux_names=(), draws_key=True):
         self._forward_fn = forward_fn
+        self._draws_key = draws_key
         self._param_names = sorted(param_dict.keys())
         aux = set(aux_names)
         self._aux_names = [n for n in self._param_names if n in aux]
@@ -129,6 +140,7 @@ class CachedOp:
         self._storage = None
         self._stream = None
         self._pool = None
+        self._key_buf = None
         self._generation = 0
         self._counts = {"captures": 0, "replays": 0, "eager_runs": 0,
                         "drops": 0}
@@ -183,8 +195,12 @@ class CachedOp:
         return out
 
     # ------------------------------------------------------------------
-    def _call_fn(self, params, inputs):
-        out = self._forward_fn(dict(zip(self._param_names, params)), *inputs)
+    def _call_fn(self, params, inputs, rng_key):
+        scope = _random.key_override(rng_key) if self._draws_key \
+            else contextlib.nullcontext()
+        with scope:
+            out = self._forward_fn(dict(zip(self._param_names, params)),
+                                   *inputs)
         if isinstance(out, (list, tuple)):
             self._out_tree = "tuple" if isinstance(out, tuple) else "list"
             return list(out)
@@ -205,15 +221,17 @@ class CachedOp:
         as_nd = any(isinstance(x, NDArray) for x in inputs)
         in_vals = [_as_tensor(x) for x in inputs]
         sig = self._note_dispatch(training, in_vals)
+        rng_key = _random.next_key() if self._draws_key else None
         first = in_vals[0] if in_vals else (params[0] if params else None)
         if first is None or first.device.type != "cuda":
             with self._lock:
                 self._counts["eager_runs"] += 1
             # recorded exactly when a graph would record: under record()
             with torch.set_grad_enabled(recording):
-                return self._wrap(self._call_fn(params, in_vals), as_nd)
+                return self._wrap(self._call_fn(params, in_vals, rng_key),
+                                  as_nd)
         return self._wrap(self._call_graph(sig, training, recording, params,
-                                           in_vals), as_nd)
+                                           in_vals, rng_key), as_nd)
 
     # ------------------------------------------------------------------
     def _check_storage(self, params):
@@ -224,7 +242,11 @@ class CachedOp:
             self._graphs.clear()
             self._storage = key
 
-    def _call_graph(self, sig, training, recording, params, in_vals):
+    def _call_graph(self, sig, training, recording, params, in_vals,
+                    rng_key):
+        # the key's words as a host tensor, what the replay copies in
+        if rng_key is not None:
+            rng_key = _random.key_tensor(rng_key, "cpu")
         grad_params = [i for i, p in enumerate(params)
                        if recording and p.requires_grad]
         key = (sig, recording, tuple(x.requires_grad for x in in_vals)
@@ -237,16 +259,18 @@ class CachedOp:
                                       grad_params)
                 self._graphs[key] = entry
             if not recording:
-                return self._replay(entry, in_vals)
-        outs = _GraphReplay.apply(self, entry, len(in_vals), *in_vals,
-                                  *[params[i] for i in grad_params])
+                return self._replay(entry, in_vals, rng_key)
+        outs = _GraphReplay.apply(self, entry, rng_key, len(in_vals),
+                                  *in_vals, *[params[i] for i in grad_params])
         return list(outs)
 
-    def _replay(self, entry, in_vals):
+    def _replay(self, entry, in_vals, rng_key):
         with torch.no_grad():
             for s, x in zip(entry.static_in, in_vals):
                 if s is not x:
                     s.copy_(x)
+            if rng_key is not None:
+                self._key_buf.copy_(rng_key)
         entry.fwd.replay()
         self._generation += 1
         self._counts["replays"] += 1
@@ -266,6 +290,8 @@ class CachedOp:
             self._stream = torch.cuda.Stream(device)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        if self._key_buf is None:
+            self._key_buf = torch.zeros(2, dtype=torch.int32, device=device)
         stream = self._stream
         entry = _Graph()
         with torch.no_grad():
@@ -289,7 +315,7 @@ class CachedOp:
             saved = [a.detach().clone() for a in aux]
 
         def run():
-            outs = self._call_fn(cap_params, entry.static_in)
+            outs = self._call_fn(cap_params, entry.static_in, self._key_buf)
             if recording:
                 diff = [o for o in outs if o.requires_grad]
                 if diff and wrt:
@@ -314,7 +340,7 @@ class CachedOp:
         with torch.cuda.graph(entry.fwd, pool=self._pool, stream=stream,
                               capture_error_mode="thread_local"), \
                 torch.set_grad_enabled(recording):
-            outs = self._call_fn(cap_params, entry.static_in)
+            outs = self._call_fn(cap_params, entry.static_in, self._key_buf)
         entry.static_out = outs
         entry.out_diff = [recording and o.requires_grad for o in outs]
         entry.bwd = None
@@ -349,9 +375,9 @@ class _GraphReplay(torch.autograd.Function):
     signature's two graphs."""
 
     @staticmethod
-    def forward(ctx, cop, entry, n_in, *tensors):
+    def forward(ctx, cop, entry, rng_key, n_in, *tensors):
         with cop._lock:
-            outs = cop._replay(entry, tensors[:n_in])
+            outs = cop._replay(entry, tensors[:n_in], rng_key)
             ctx.generation = cop._generation
         ctx.cop, ctx.entry, ctx.n_tensors = cop, entry, len(tensors)
         frozen = [o for o, d in zip(outs, entry.out_diff) if not d]
@@ -380,4 +406,4 @@ class _GraphReplay(torch.autograd.Function):
             grads = [None] * ctx.n_tensors
             for slot, g in zip(entry.grad_slots, entry.static_grads):
                 grads[slot] = None if g is None else g.clone()
-        return (None, None, None) + tuple(grads)
+        return (None, None, None, None) + tuple(grads)

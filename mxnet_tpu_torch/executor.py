@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import autograd
+from . import random as _random
 from .base import MXNetError
 from .cached_op import CachedOp
 from .context import resolve_device
@@ -55,9 +56,12 @@ def graph_function(symbol, arg_names, aux_names, is_train, device=None):
     its registered function in topological order (a kernel wrapper on
     CUDA tensors launches its kernel).  An op with no inputs (``_zeros``,
     ``_arange``) makes its output on the first value's device, or on
-    ``device`` in a graph of no arguments.  In
-    training, each BatchNorm node folds its batch statistics into its
-    moving-statistics aux tensors in place."""
+    ``device`` in a graph of no arguments.  The ops that draw take, in
+    topological order, the rows of ``keys`` (``fn(arg_vals, aux_vals,
+    keys)``; ``fn.n_rng`` of them), or without it a fresh
+    ``random.next_key()`` each (the JAX executor's one key a random
+    node).  In training, each BatchNorm node folds its batch statistics
+    into its moving-statistics aux tensors in place."""
     nodes = symbol._topo_nodes()
     arg_order = {n: i for i, n in enumerate(arg_names)}
     aux_order = {n: i for i, n in enumerate(aux_names)}
@@ -78,17 +82,23 @@ def graph_function(symbol, arg_names, aux_names, is_train, device=None):
                 fold = (aux_order[mm], aux_order[mv],
                         float(attrs.get("momentum", 0.9)),
                         float(attrs.get("eps", BN_EPS_DEFAULT)))
-        plan.append((n, op, attrs, fold))
+        plan.append((n, op, attrs, fold, op.rng_for(attrs)))
+    n_rng = sum(1 for *_, draws in plan if draws)
 
-    def fn(arg_vals, aux_vals):
+    def fn(arg_vals, aux_vals, keys=None):
         env = {}
+        rng_index = 0
         for n in nodes:
             if n.op is None:
                 env[(id(n), 0)] = aux_vals[aux_order[n.name]] \
                     if n.attrs.get("__is_aux__") \
                     else arg_vals[arg_order[n.name]]
-        for n, op, attrs, fold in plan:
+        for n, op, attrs, fold, draws in plan:
             in_vals = [env[(id(inp), idx)] for (inp, idx) in n.inputs]
+            if draws:
+                attrs = dict(attrs, _rng_key=_random.next_key()
+                             if keys is None else keys[rng_index])
+                rng_index += 1
             if not in_vals:
                 first = list(arg_vals[:1]) + list(aux_vals[:1])
                 attrs = dict(attrs, _device=first[0].device if first
@@ -107,6 +117,7 @@ def graph_function(symbol, arg_names, aux_names, is_train, device=None):
                         a.copy_(a * m + batch * (1 - m))
         return [env[(id(n), idx)] for (n, idx) in symbol._entries]
 
+    fn.n_rng = n_rng
     return fn
 
 
@@ -193,12 +204,14 @@ class Executor:
             fn = self._build_fn(is_train)
             arg_names, aux_names = self.arg_names, self.aux_names
 
-            def forward_fn(vals):
+            def forward_fn(vals, *keys):
                 return fn([vals["arg:" + n] for n in arg_names],
-                          [vals["aux:" + n] for n in aux_names])
+                          [vals["aux:" + n] for n in aux_names],
+                          keys[0] if keys else None)
 
             cop = CachedOp(forward_fn, self._bound_tensors(),
-                           aux_names=["aux:" + n for n in aux_names])
+                           aux_names=["aux:" + n for n in aux_names],
+                           draws_key=False)
             self._cops[is_train] = cop
         return cop
 
@@ -224,8 +237,14 @@ class Executor:
         vals = self._bound_tensors()
         # the arguments taking a gradient: leaves that alias their storage
         leaves = [vals["arg:" + n].requires_grad_() for n in wrt]
+        op = self._cached_op(is_train)
+        # one key a random node a call, as the JAX executor's _keys()
+        n_rng = self._build_fn(is_train).n_rng
+        keys = [torch.stack([_random.key_tensor(_random.next_key(),
+                                                self._ctx)
+                             for _ in range(n_rng)])] if n_rng else []
         with autograd._RecordingStateScope(bool(wrt), is_train):
-            outs = self._cached_op(is_train)(vals)
+            outs = op(vals, *keys)
         outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
         self._pending = (outs, leaves, wrt) if wrt else None
         self.outputs = [NDArray(o.detach()) for o in outs]

@@ -27,7 +27,9 @@ through one ``cached_op.CachedOp`` (:func:`build_cached_op`, the one place
 that decides which parameters are aux): captured into a CUDA graph per
 input signature on the card, run eagerly on the CPU.  Inside a cached
 forward the children run eagerly, so the outermost active block owns the
-graph.
+graph; an active child still scopes the keys of its random ops as the JAX
+package's nested CachedOp does (one ``random.next_key()`` a call, split
+inside).
 
 Symbols (:31-57, :378-460): a :class:`HybridBlock` called with a
 ``Symbol`` builds a graph instead of computing: ``_build_symbol`` runs the
@@ -324,6 +326,12 @@ class Block(nn.Module):
             return type(out)(NDArray(o) for o in out)
         return NDArray(out)
 
+    def register_child(self, block, name=None):
+        """Register ``block`` as a child under ``name`` (default: the count
+        of children so far), as the JAX block does (:229-232)."""
+        self.add_module(str(len(self._modules)) if name is None else name,
+                        block)
+
     def hybridize(self, active=True, **kwargs):
         """Hybridize the children (a plain block has no cache of its
         own)."""
@@ -423,7 +431,13 @@ class HybridBlock(Block):
     def __call__(self, *args, **kwargs):
         if args and isinstance(args[0], Symbol):
             return self._build_symbol(*args)
-        if not self._active or kwargs or _in_cached_forward():
+        if self._active and _in_cached_forward():
+            # the JAX package calls an active child through a CachedOp of
+            # its own, nested in the trace: one key a call, its random ops
+            # splitting from that key
+            with _random.key_override(_random.next_key()):
+                return Block.__call__(self, *args, **kwargs)
+        if not self._active or kwargs:
             return Block.__call__(self, *args, **kwargs)
         if self._cached_op is None:
             params = self.collect_params().values()
@@ -435,13 +449,26 @@ class HybridBlock(Block):
             self._build_cache()
         return self._cached_op(self._cached_param_vals, *args)
 
+    def forward(self, *inputs, **kwargs):
+        """The eager forward of a block written only as ``hybrid_forward``
+        (as the JAX layers are): that function with ``F`` the registered
+        ops over tensors (``ndarray.register.tensor_ops``) and its own
+        parameters' tensors."""
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            raise NotImplementedError("%s defines neither forward nor "
+                                      "hybrid_forward" % type(self).__name__)
+        from ..ndarray.register import tensor_ops
+        kwargs.update((k, getattr(self, k)) for k in self._reg_params)
+        return self.hybrid_forward(tensor_ops, *inputs, **kwargs)
+
     def hybrid_forward(self, F, *inputs, **params):
-        """The layer as a function of ``F`` (the port's ``symbol`` module)
-        and its parameters' variables, as the JAX layer writes it.  The
-        default serves a block with no parameters of its own whose
-        ``forward`` only calls its children and Symbol's operators (``+``):
-        that ``forward`` over the Symbols.  A layer that calls torch in
-        ``forward`` writes its own."""
+        """The layer as a function of ``F`` (the port's ``symbol`` module,
+        or :data:`~..ndarray.register.tensor_ops` eagerly) and its
+        parameters, as the JAX layer writes it.  The default serves a
+        block with no parameters of its own whose ``forward`` only calls
+        its children and Symbol's operators (``+``): that ``forward`` over
+        the Symbols.  A layer that calls torch in ``forward`` writes its
+        own."""
         if params:
             raise NotImplementedError(
                 "%s has parameters of its own and no hybrid_forward"
@@ -627,8 +654,11 @@ def functional_call(block, param_vals, *input_vals, training=False,
     ``_RecordingStateScope(False, training)``; gradients are torch's, so
     recording is left to the caller's grad mode, under which
     ``torch.autograd`` differentiates the outputs with respect to the
-    values given.  ``rng_key`` (two ``uint32`` words; default the key of
-    seed 0) scopes ``random.next_key``."""
+    values given.  ``rng_key`` (default the key of seed 0) scopes
+    ``random.next_key``, so the block's random ops split their keys from
+    it as the JAX package's do: two ``uint32`` host words, or an ``int32``
+    device tensor of the same bits (``random.key_tensor``), which a
+    captured graph can take as its input."""
     params = {p.name: p for p in block.collect_params().values()}
     missing = sorted(set(params) - set(param_vals))
     if missing:

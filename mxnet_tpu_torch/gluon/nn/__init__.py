@@ -1,13 +1,16 @@
 """Gluon ``nn`` layers ported so far (counterpart of
 ``mxnet_tpu/gluon/nn``)."""
-from .activations import Activation
-from .basic_layers import (BatchNorm, Dense, Embedding, Flatten,
-                           HybridSequential, LayerNorm)
+from .activations import ELU, GELU, SELU, Activation, LeakyReLU, PReLU, Swish
+from .basic_layers import (BatchNorm, Dense, Dropout, Embedding, Flatten,
+                           HybridLambda, HybridSequential, InstanceNorm,
+                           Lambda, LayerNorm, Sequential)
 from .conv_layers import (AvgPool2D, Conv1D, Conv2D, Conv3D,
                           GlobalAvgPool2D, GlobalMaxPool2D, MaxPool2D,
-                          channels_last)
+                          ReflectionPad2D, channels_last)
 
 __all__ = ["Activation", "AvgPool2D", "BatchNorm", "Conv1D", "Conv2D",
-           "Conv3D", "Dense", "Embedding", "Flatten", "GlobalAvgPool2D",
-           "GlobalMaxPool2D", "HybridSequential", "LayerNorm", "MaxPool2D",
-           "channels_last"]
+           "Conv3D", "Dense", "Dropout", "ELU", "Embedding", "Flatten",
+           "GELU", "GlobalAvgPool2D", "GlobalMaxPool2D", "HybridLambda",
+           "HybridSequential", "InstanceNorm", "Lambda", "LayerNorm",
+           "LeakyReLU", "MaxPool2D", "PReLU", "ReflectionPad2D", "SELU",
+           "Sequential", "Swish", "channels_last"]

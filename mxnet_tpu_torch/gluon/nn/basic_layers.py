@@ -1,8 +1,9 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``).
 
-Only the layers the ported models use: :class:`Dense`, :class:`Embedding`,
-:class:`LayerNorm`, :class:`BatchNorm`, :class:`Flatten` and
-:class:`HybridSequential`.  Parameters keep the JAX package's names,
+:class:`Dense`, :class:`Dropout`, :class:`Embedding`, :class:`LayerNorm`,
+:class:`BatchNorm`, :class:`InstanceNorm`, :class:`Flatten`,
+:class:`Sequential`, :class:`HybridSequential`, :class:`Lambda` and
+:class:`HybridLambda`.  Parameters keep the JAX package's names,
 shapes, initializers and order (Dense weight ``[units, in_units]``,
 LayerNorm and BatchNorm ``gamma``/``beta``, BatchNorm's ``running_mean``/
 ``running_var``), so weights, names and files carry across unchanged.  A
@@ -19,6 +20,7 @@ attributes and names the JAX layer writes.
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 from torch import nn
@@ -29,11 +31,15 @@ from ...context import resolve_device
 from ...ops.nn_ops import (batch_norm_output, batch_stats, fully_connected,
                            layer_norm)
 from ...ops.tensor_ops import embedding
-from ..block import HybridBlock
+from ... import random as _random
+from ...ndarray.ndarray import NDArray
+from ...ops.nn_ops import dropout, instance_norm
+from ..block import Block, HybridBlock
 from .activations import Activation
 
-__all__ = ["Dense", "Embedding", "LayerNorm", "BatchNorm", "Flatten",
-           "HybridSequential"]
+__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "BatchNorm",
+           "InstanceNorm", "Flatten", "Sequential", "HybridSequential",
+           "Lambda", "HybridLambda"]
 
 
 class Dense(HybridBlock):
@@ -137,6 +143,31 @@ class LayerNorm(HybridBlock):
     def hybrid_forward(self, F, data, gamma, beta):
         return F.LayerNorm(data, gamma, beta, axis=self._axis,
                            eps=self._epsilon)
+
+
+class Dropout(HybridBlock):
+    """Zero each element (or, with ``axes``, each slice along them) with
+    probability ``rate`` in training, scaling the rest by ``1/(1-rate)``
+    (:150-162).  Every call draws a key (``random.next_key()``), in
+    prediction too, as the JAX layer's op does; so the masks, and the keys
+    after them, are the JAX package's for one ``mx.random.seed``."""
+
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = axes
+
+    def forward(self, x):
+        key = _random.next_key()
+        if not autograd.is_training() or self._rate <= 0:
+            return x
+        return dropout(x, self._rate, key, self._axes)
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes, name="fwd")
+
+    def extra_repr(self):
+        return "p = %s, axes=%s" % (self._rate, self._axes)
 
 
 class BatchNorm(HybridBlock):
@@ -256,6 +287,45 @@ class BatchNorm(HybridBlock):
                            use_global_stats=self._use_global_stats)[0]
 
 
+class InstanceNorm(HybridBlock):
+    """Normalize each sample's channels over their spatial axes (the
+    ``InstanceNorm`` op), then ``gamma`` and ``beta`` per channel
+    (:282-315).  ``scale=False`` (the default) leaves gamma at its
+    initializer without a gradient, ``center=False`` beta.  The
+    statistics are over the axes after 1 whatever ``axis`` is, as in the
+    JAX layer, whose NDArrays have no ``swapaxes``: ``axis`` only sizes
+    gamma and beta."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
+        self._device = resolve_device(device)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def _shape_hook(self, x, *args):
+        for name in ("gamma", "beta"):
+            self._reg_params[name].shape = (x.shape[self._axis],)
+
+    def forward(self, x):
+        return instance_norm(x, self.gamma, self.beta, self._epsilon)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis != 1 and hasattr(x, "swapaxes"):
+            x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta, name="fwd", eps=self._epsilon)
+
+
 class Flatten(HybridBlock):
     """(B, ...) -> (B, -1)."""
 
@@ -264,6 +334,39 @@ class Flatten(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
+
+
+class Sequential(Block, nn.Sequential):
+    """A stack of blocks run in order, not hybridizable as a whole
+    (:12-52): ``add`` appends, ``net[i]`` is a child and ``net[i:j]`` a new
+    Sequential of those children under this one's prefix."""
+
+    def __init__(self, *blocks, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.add(*blocks)
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.append(block)
+
+    forward = nn.Sequential.forward
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def hybridize(self, active=True, **kwargs):
+        if self._modules and all(isinstance(c, HybridBlock)
+                                 for c in self._modules.values()):
+            warnings.warn("All children of this Sequential layer '%s' are "
+                          "HybridBlocks. Consider using HybridSequential for "
+                          "the best performance." % self.prefix, stacklevel=2)
+        super().hybridize(active, **kwargs)
 
 
 class HybridSequential(HybridBlock, nn.Sequential):
@@ -278,6 +381,8 @@ class HybridSequential(HybridBlock, nn.Sequential):
         for block in blocks:
             self.append(block)
 
+    forward = nn.Sequential.forward
+
     def _build_symbol(self, *inputs):
         # no name scope of its own, as in the JAX block: each child traces
         # in its own
@@ -285,3 +390,70 @@ class HybridSequential(HybridBlock, nn.Sequential):
         for block in self._modules.values():
             x = block._build_symbol(x)
         return x
+
+
+def _nd_call(fn, args):
+    """``fn`` over NDArray views of tensor ``args``; the result's tensors."""
+    out = fn(*[NDArray(a) if isinstance(a, torch.Tensor) else a
+               for a in args])
+    if isinstance(out, (list, tuple)):
+        return type(out)(o._data if isinstance(o, NDArray) else o
+                         for o in out)
+    return out._data if isinstance(out, NDArray) else out
+
+
+class Lambda(Block):
+    """A block of a function (:345-364): the name of an ``nd`` function, or
+    a callable, called on the block's arguments as NDArrays."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd_mod
+            if not hasattr(nd_mod, function):
+                raise AssertionError("Function name %s is not found in "
+                                     "ndarray." % function)
+            self._func_impl = getattr(nd_mod, function)
+        elif callable(function):
+            self._func_impl = function
+        else:
+            raise ValueError("Unrecognized function in lambda: %r"
+                             % (function,))
+        self._func_name = getattr(self._func_impl, "__name__", "custom")
+
+    def forward(self, *args):
+        return _nd_call(self._func_impl, args)
+
+    def extra_repr(self):
+        return self._func_name
+
+
+class HybridLambda(HybridBlock):
+    """A hybridizable block of a function (:367-389): the name of a
+    function that both ``nd`` and ``sym`` have, or a callable
+    ``function(F, x, *args)``; eagerly ``F`` is the registered ops over
+    tensors, traced it is ``sym``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd_mod
+            from ... import symbol as sym_mod
+            if not (hasattr(nd_mod, function)
+                    and hasattr(sym_mod, function)):
+                raise AssertionError("Function name %s is not found in "
+                                     "ndarray/symbol." % function)
+            self._func = lambda F, *args: getattr(F, function)(*args)
+            self._func_name = function
+        elif callable(function):
+            self._func = function
+            self._func_name = getattr(function, "__name__", "custom")
+        else:
+            raise ValueError("Unrecognized function in lambda: %r"
+                             % (function,))
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def extra_repr(self):
+        return self._func_name

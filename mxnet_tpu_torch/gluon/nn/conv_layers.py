@@ -17,8 +17,9 @@ natively), so nothing is copied, and it permutes the result back.
 first batch (``_shape_hook``, :130-140), as Gluon does; a channel-last
 weight's is its last.  Each layer traces into ``sym.Convolution`` or
 ``sym.Pooling`` (``hybrid_forward``) with the JAX layer's attributes
-(``_kwargs``).  Transposed convolutions, the 1-D and 3-D pool layers and
-``ReflectionPad2D`` are not ported yet.
+(``_kwargs``).  :class:`ReflectionPad2D` pads through the ``Pad`` op
+(:369-377).  Transposed convolutions and the 1-D and 3-D pool layers are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from ..block import HybridBlock
 from .activations import Activation
 
 __all__ = ["channels_last", "Conv1D", "Conv2D", "Conv3D", "MaxPool2D",
-           "AvgPool2D", "GlobalMaxPool2D", "GlobalAvgPool2D"]
+           "AvgPool2D", "GlobalMaxPool2D", "GlobalAvgPool2D",
+           "ReflectionPad2D"]
 
 # the layout layers built inside channels_last() default to
 _channels_last_scope = contextvars.ContextVar("mxnet_tpu_torch_channels_last",
@@ -246,3 +248,17 @@ class GlobalAvgPool2D(_Pooling):
     def __init__(self, layout=None, **kwargs):
         super().__init__((1, 1), None, 0, True, True, "avg", layout,
                          **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding of the two spatial axes of an NCHW batch:
+    ``padding`` an int (each side) or the ``Pad`` op's flat 8-tuple."""
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = padding
+
+    def hybrid_forward(self, F, x):
+        return F.Pad(x, mode="reflect", pad_width=self._padding)

@@ -23,9 +23,11 @@ port never imports ``ml_dtypes``); ``asnumpy()`` of a bf16 array widens it
 to float32, exactly (the JAX package hands out ``ml_dtypes``' bfloat16).
 
 Every operator goes through :func:`invoke`, the counterpart of
-``Imperative::Invoke``: look the op up, inject ``_training``, run it
-(recorded by torch's autograd inside ``autograd.record()``, under
-``torch.no_grad()`` outside it), wrap the outputs and honour ``out=``.
+``Imperative::Invoke``: look the op up, inject ``_training`` and, for an
+op that draws, a fresh ``random.next_key()`` as ``_rng_key``
+(``mxnet_tpu/ndarray/ndarray.py:559-561``), run it (recorded by torch's
+autograd inside ``autograd.record()``, under ``torch.no_grad()`` outside
+it), wrap the outputs and honour ``out=``.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import autograd
+from .. import random as _random
 from ..base import MXNetError, integer_types, numeric_types, \
     tensor_from_numpy
 from ..context import resolve_device
@@ -459,6 +462,9 @@ def invoke(op_name, inputs, attrs, out=None):
     if op.mode_dependent and op.mode_for(attrs):
         attrs = dict(attrs)
         attrs["_training"] = autograd.is_training()
+    if op.needs_rng and op.rng_for(attrs):
+        attrs = dict(attrs)
+        attrs["_rng_key"] = _random.next_key()
     vals = [i._data if isinstance(i, NDArray) else i for i in inputs]
     if autograd.is_recording():
         result = op.apply(attrs, *vals)

@@ -2,7 +2,8 @@
 ``mxnet_tpu/ops/nn_ops.py``): ``FullyConnected`` :47, ``Convolution`` :79,
 ``Pooling`` :161, ``BatchNorm`` :329, ``LayerNorm`` :354, ``Activation``
 :416, ``LeakyReLU`` :441, ``softmax`` :476, ``log_softmax`` :486,
-``SoftmaxOutput`` :512 and ``softmax_cross_entropy`` :633.
+``SoftmaxOutput`` :512, ``softmax_cross_entropy`` :633, ``Dropout``
+:711, ``InstanceNorm`` :367 and ``CTCLoss`` :966.
 
 The Gluon layers compute through the functions here
 (:func:`fully_connected`, :func:`convolution`, :func:`pooling`,
@@ -21,7 +22,8 @@ import torch.nn.functional as F
 from .registry import alias, register
 
 __all__ = ["ACTIVATIONS", "fully_connected", "convolution", "pooling",
-           "batch_norm_output", "batch_stats", "layer_norm"]
+           "batch_norm_output", "batch_stats", "layer_norm", "dropout",
+           "instance_norm"]
 
 ACTIVATIONS = {"relu": F.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
                "softrelu": F.softplus, "softsign": F.softsign}
@@ -272,9 +274,10 @@ def _is_rrelu(attrs):
 
 @register("LeakyReLU", mode_dependent=_is_rrelu, needs_rng=_is_rrelu)
 def _leaky_relu(attrs, data, gamma=None):
-    """leaky, elu, selu, prelu (slope ``gamma`` per channel, axis 1) and
-    gelu (tanh form, as ``jax.nn.gelu``); rrelu draws its slopes, and
-    raises until the RNG is ported."""
+    """leaky, elu, selu, prelu (slope ``gamma`` per channel, axis 1), gelu
+    (tanh form, as ``jax.nn.gelu``) and rrelu, whose slopes are drawn per
+    element from ``U(lower_bound, upper_bound)`` in training (the midpoint
+    in prediction), from the call's key."""
     act = attrs.get("act_type", "leaky")
     slope = float(attrs.get("slope", 0.25))
     if act == "leaky":
@@ -291,6 +294,15 @@ def _leaky_relu(attrs, data, gamma=None):
         return torch.where(data >= 0, data, g * data)
     if act == "gelu":
         return F.gelu(data, approximate="tanh")
+    if act == "rrelu":
+        lower = float(attrs.get("lower_bound", 0.125))
+        upper = float(attrs.get("upper_bound", 0.334))
+        if attrs.get("_training", False):
+            from .random_ops import uniform
+            sl = uniform(attrs["_rng_key"], data.shape, data.dtype, lower,
+                         upper, data.device)
+            return torch.where(data >= 0, data, sl * data)
+        return torch.where(data >= 0, data, (lower + upper) / 2 * data)
     raise ValueError("unknown act_type %s" % act)
 
 
@@ -413,6 +425,99 @@ def _softmax_cross_entropy(attrs, data, label):
 
 
 # ---------------------------------------------------------------------------
+# Dropout, InstanceNorm, CTCLoss
+
+def dropout_mask_shape(shape, axes):
+    """The mask's shape: 1 along ``axes`` (as given, not normalized, as in
+    the JAX op), the data's elsewhere."""
+    axes = tuple(axes)
+    return tuple(1 if i in axes else s for i, s in enumerate(shape))
+
+
+def dropout(x, p, key, axes=()):
+    """``x * bernoulli(key, 1 - p, mask shape).astype(x.dtype) / (1 - p)``,
+    bit for bit the JAX op's (the divisor rounded to ``x``'s dtype first,
+    as JAX's weak-typed scalar is)."""
+    from .random_ops import bernoulli
+    keep = 1.0 - p
+    mask = bernoulli(key, keep, dropout_mask_shape(x.shape, axes), x.device)
+    divisor = float(torch.tensor(keep, dtype=x.dtype))
+    return x * mask.to(x.dtype).div_(divisor)
+
+
+@register("Dropout", mode_dependent=True, needs_rng=True)
+def _dropout(attrs, data):
+    """The identity in prediction (unless ``mode='always'``) and at
+    ``p <= 0``; else :func:`dropout` with the call's key
+    (``mxnet_tpu/ops/nn_ops.py:711-729``).  Its gradient is the mask."""
+    p = float(attrs.get("p", 0.5))
+    training = bool(attrs.get("_training", False))
+    if (not training and attrs.get("mode", "training") != "always") \
+            or p <= 0:
+        return data
+    return dropout(data, p, attrs["_rng_key"], attrs.get("axes", ()))
+
+
+def instance_norm(x, gamma, beta, eps):
+    """Normalize each sample's channels over the spatial axes with the
+    biased variance, then scale and shift per channel (axis 1)."""
+    axes = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=axes, correction=0, keepdim=True)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    out = (x - mean) / torch.sqrt(var + eps)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("InstanceNorm")
+def _instance_norm(attrs, data, gamma, beta):
+    return instance_norm(data, gamma, beta, float(attrs.get("eps", 1e-3)))
+
+
+@register("CTCLoss")
+def _ctc_loss(attrs, data, label, data_lengths=None, label_lengths=None):
+    """Connectionist temporal classification loss per sample, (N,), of
+    ``data`` (T, N, C) activations (log-softmax taken here) and ``label``
+    (N, L) (``mxnet_tpu/ops/nn_ops.py:966-1068``).  ``blank_label='first'``
+    reserves class 0 (labels from 1, padding 0), ``'last'`` class C-1
+    (labels from 0, padding -1).  A length input is taken only where its
+    flag (``use_data_lengths``, ``use_label_lengths``) is set; else a
+    sample's label length counts its non-padding entries and its data
+    length is T.  The loss is torch's ``ctc_loss`` (a jnp scan in the
+    reference, not a Pallas kernel)."""
+    T, N, C = data.shape
+    blank_first = str(attrs.get("blank_label", "first")) == "first"
+    blank = 0 if blank_first else C - 1
+    pad_val = 0 if blank_first else -1
+    use_dl = bool(attrs.get("use_data_lengths", False))
+    use_ll = bool(attrs.get("use_label_lengths", False))
+    extras = [x for x in (data_lengths, label_lengths) if x is not None]
+    if not attrs:   # a direct call: trust the keyword positions
+        use_dl, use_ll = data_lengths is not None, label_lengths is not None
+    dl = extras.pop(0) if use_dl and extras else None
+    ll = extras.pop(0) if use_ll and extras else None
+    if extras:
+        raise ValueError(
+            "CTCLoss got %d length input(s) not covered by use_data_lengths/"
+            "use_label_lengths; set the matching flag(s)" % len(extras))
+    label = label.to(torch.int64)
+    lab_len = ll.to(torch.int64) if ll is not None \
+        else (label != pad_val).sum(dim=1)
+    seq_len = dl.to(torch.int64) if dl is not None \
+        else torch.full((N,), T, dtype=torch.int64, device=data.device)
+    logp = torch.log_softmax(data.to(torch.float32), dim=-1)
+    targets = torch.where(label == pad_val, torch.zeros_like(label), label) \
+        if label.shape[1] else label
+    loss = F.ctc_loss(logp, targets, seq_len, lab_len, blank=blank,
+                      reduction="none", zero_infinity=False)
+    return loss.to(data.dtype)
+
+
+alias("ctc_loss", "CTCLoss")
+alias("_contrib_CTCLoss", "CTCLoss")
+alias("_contrib_ctc_loss", "CTCLoss")
+
+
+# ---------------------------------------------------------------------------
 # the symbolic API's input specs and parameter shapes (the JAX package's
 # ``nn_ops.py:1185-1340``, for the ops ported here)
 
@@ -465,6 +570,10 @@ def _ln_param_shapes(attrs, in_shapes):
     return {"gamma": (c,), "beta": (c,)}
 
 
+def _in_param_shapes(attrs, in_shapes):
+    return {"gamma": (in_shapes[0][1],), "beta": (in_shapes[0][1],)}
+
+
 def _embedding_param_shapes(attrs, in_shapes):
     return {"weight": (int(attrs["input_dim"]), int(attrs["output_dim"]))}
 
@@ -493,6 +602,7 @@ def set_symbol_specs():
         "BatchNorm": (["data", "gamma", "beta", "aux:moving_mean",
                        "aux:moving_var"], _bn_param_shapes),
         "LayerNorm": (["data", "gamma", "beta"], _ln_param_shapes),
+        "InstanceNorm": (["data", "gamma", "beta"], _in_param_shapes),
         "Embedding": (["data", "weight"], _embedding_param_shapes),
         "LeakyReLU": (lambda attrs: ["data", "gamma"]
                       if attrs.get("act_type") == "prelu" else ["data"],
@@ -501,6 +611,7 @@ def set_symbol_specs():
                           _softmax_output_label_shape),
         "softmax_cross_entropy": (["data", "label:label"],
                                   _softmax_output_label_shape),
+        "CTCLoss": (["data", "label:label"], None),
     }
     for name, (spec, shapes) in specs.items():
         op = get_op(name)

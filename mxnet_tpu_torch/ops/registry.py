@@ -9,8 +9,11 @@ directly: eager torch is the port's dispatch, so there is no per-attrs jit
 cache.  The registry is the source of the generated ``nd.*`` namespace
 (``ndarray/register.py``).
 
-Ops that draw randomness (``needs_rng``) raise until the RNG is ported;
-sparse implementations (``fcompute_ex``) are not ported.
+An op that draws randomness (``needs_rng``) takes its key in
+``attrs["_rng_key"]``: the dispatch (``ndarray.invoke``, the executor)
+threads a fresh ``random.next_key()`` into each call, as the JAX package
+does; an op still unported raises, naming itself (``random_ops``' rejection
+samplers).  Sparse implementations (``fcompute_ex``) are not ported.
 """
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ class Op:
     - ``num_outputs``: an int, or a callable ``attrs -> int``;
     - ``mode_dependent``: ``attrs['_training']`` is injected from
       ``autograd.is_training()`` (a bool, or a callable ``attrs -> bool``);
-    - ``needs_rng``: the op draws randomness (bool or callable); such an op
-      raises until the RNG is ported;
+    - ``needs_rng``: the op draws randomness (bool or callable): the
+      dispatch puts a fresh key in ``attrs['_rng_key']`` for each call;
     - ``visible_outputs``: outputs beyond this count are hidden when a
       symbol is composed (BatchNorm's mean and invstd);
     - ``dynamic_attrs``: attributes that change from call to call (an
@@ -90,9 +93,6 @@ class Op:
 
     def apply(self, attrs, *tensors):
         """Run ``fcompute`` on ``tensors``."""
-        if self.needs_rng and self.rng_for(attrs):
-            raise MXNetError("op %s draws randomness, and the RNG is not "
-                             "ported yet" % self.name)
         for k in self.dynamic_attrs:
             if isinstance(attrs.get(k), (str, bytes)):
                 attrs = dict(attrs)

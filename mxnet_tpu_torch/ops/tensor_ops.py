@@ -2,7 +2,8 @@
 ``mxnet_tpu/ops/tensor_ops.py``): ``Reshape`` with MXNet's codes
 (:24-66), ``Flatten`` (:69), ``transpose`` (:77), ``expand_dims`` (:109),
 ``SliceChannel``/``split`` (:226-238), ``slice_like`` (:214), ``Concat`` (:256-262),
-``stack`` (:265), ``Embedding`` (:349), ``one_hot`` (:361), ``dot``
+``stack`` (:265), ``Pad`` (:283), ``clip`` (:306), ``where`` (:311),
+``reshape_like``, ``Embedding`` (:349), ``one_hot`` (:361), ``dot``
 (:474), ``batch_dot`` (:490) and the creators ``_zeros``, ``_ones`` and
 ``_arange`` (:515-552).
 
@@ -139,6 +140,54 @@ alias("concat", "Concat")
 @register("stack")
 def _stack(attrs, *arrays):
     return torch.stack(arrays, dim=int(attrs.get("axis", 0)))
+
+
+_PAD_MODES = {"constant": "constant", "edge": "replicate",
+              "reflect": "reflect"}
+
+
+@register("Pad")
+def _pad(attrs, x):
+    """``jnp.pad`` of ``x`` by ``pad_width`` (before and after, axis by
+    axis, MXNet's flat tuple) in ``mode`` constant (``constant_value``),
+    edge or reflect.  Edge and reflect pad from the first axis that takes
+    padding on (torch pads at most the last three axes that way)."""
+    pad_width = attrs["pad_width"]
+    mode = attrs.get("mode", "constant")
+    if mode not in _PAD_MODES:
+        raise ValueError("unknown pad mode %s" % mode)
+    pairs = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+             for i in range(len(pad_width) // 2)]
+    lead = 0
+    if mode != "constant":
+        while lead < len(pairs) and pairs[lead] == (0, 0):
+            lead += 1
+    flat = [n for pair in reversed(pairs[lead:]) for n in pair]
+    if mode == "constant":
+        return F.pad(x, flat,
+                     value=float(attrs.get("constant_value", 0.0)))
+    return F.pad(x, flat, mode=_PAD_MODES[mode])
+
+
+alias("pad", "Pad")
+
+
+@register("clip")
+def _clip(attrs, x):
+    """``jnp.clip(x, a_min, a_max)``: either bound may be absent."""
+    lo, hi = attrs.get("a_min"), attrs.get("a_max")
+    return torch.clamp(x, None if lo is None else float(lo),
+                       None if hi is None else float(hi))
+
+
+@register("where")
+def _where(attrs, cond, a, b):
+    return torch.where(cond != 0, a, b)
+
+
+@register("reshape_like")
+def _reshape_like(attrs, x, y):
+    return x.reshape(y.shape)
 
 
 def embedding(data, weight):

@@ -22,6 +22,7 @@ import numpy as _np
 import torch
 
 from .. import ops as _ops  # noqa: F401  (registers the built-in ops)
+from .. import random as _random
 from ..attribute import AttrScope
 from ..base import MXNetError
 from ..name import current as _current_names
@@ -382,6 +383,8 @@ def _infer_shapes(sym, specs, partial):
                  if not k.startswith("__") and k != "ctx_group"}
         if op.mode_for(attrs):
             attrs["_training"] = False
+        if op.rng_for(attrs):
+            attrs["_rng_key"] = _random.prng_key(0)
         if not n.inputs:
             attrs["_device"] = "meta"
         fcompute = op.plain or op.fcompute

@@ -142,6 +142,23 @@ engine = DecodeEngine(TinyCausalLM(vocab_size=16, hidden=16, num_layers=1,
                       max_new_tokens=4, warmup=False)
 assert engine.generate([1, 2], max_new_tokens=3).status == "OK"
 engine.stop()
+# the draws, Dropout, the zoo, the losses, the word LM and the scorer
+from mxnet_tpu_torch.models import benchmark_score, word_language_model
+from mxnet_tpu_torch.ops import random_ops
+with mxnet_tpu_torch.cpu():
+    u = nd.random.uniform(0, 1, shape=(4,))
+    drop = gluon.nn.Dropout(0.5)
+    with autograd.train_mode():
+        dropped = drop(nd.ones((4, 4)))
+    vgg = vision.get_model("vgg11", classes=3)
+    wlm = word_language_model.TransformerLM(16, dim=16, heads=2, hidden=16,
+                                            layers=1, max_len=8)
+wlm.initialize(initializer.Xavier())
+assert wlm(torch.zeros((1, 8), dtype=torch.int32)).shape == (1, 8, 16)
+assert gluon.loss.CTCLoss()(mxnet_tpu_torch.sym.var("p"),
+                            mxnet_tpu_torch.sym.var("l")) is not None
+assert random_ops.normal(mxnet_tpu_torch.random.prng_key(0), (3,),
+                         device="cpu").shape == (3,)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes"))
 print("FORBIDDEN", bad)

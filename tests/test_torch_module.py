@@ -107,7 +107,8 @@ def test_module_bind_forward_matches_the_jax_module():
                          ids=["eager", "compiled"])
 def test_module_fit_converges_on_the_jax_trajectory(compiled):
     data, labels = _blobs(512)
-    jmod, _ = _fit(mx, _mlp, data, labels, 2, 11, 0.1, 32, compiled=False)
+    jmod, _ = _fit(mx, _mlp, data, labels, 2, 11, 0.1, 32,
+                   compiled=compiled)
     mod, it = _fit(tmx, _mlp, data, labels, 2, 11, 0.1, 32,
                    compiled=compiled)
     assert (mod._compiled_step is not None) == compiled
@@ -168,7 +169,7 @@ def test_module_lenet_conv_fit_matches_the_jax_module():
     rng = np.random.RandomState(0)
     X = rng.uniform(0, 1, (64, 1, 12, 12)).astype(np.float32)
     Y = rng.randint(0, 10, 64).astype(np.float32)
-    jmod, _ = _fit(mx, _lenet, X, Y, 2, 13, 0.05, 16, compiled=False)
+    jmod, _ = _fit(mx, _lenet, X, Y, 2, 13, 0.05, 16)
     mod, _ = _fit(tmx, _lenet, X, Y, 2, 13, 0.05, 16)
     assert mod._compiled_step is not None
     want, got = _params(jmod), _params(mod)

@@ -324,9 +324,46 @@ def _optimizer_cases():
     ]
 
 
+def _layer_op_cases():
+    """The ops the Gluon layers, losses and zoo gained (their own draws, so
+    the tables above keep their inputs)."""
+    rng = np.random.RandomState(7)
+
+    def f(*shape, low=-2.0, high=2.0):
+        return rng.uniform(low, high, shape).astype(np.float32)
+
+    img = f(2, 3, 5, 6)
+    cond = np.where(rng.uniform(size=(3, 4)) > 0.5, 1.0, 0.0).astype(
+        np.float32)
+    ctc = f(6, 2, 5)
+    return [
+        Case("clip", [f(3, 4)], {"a_min": -0.5, "a_max": 1.0}),
+        Case("clip", [f(3, 4)], {"a_max": 0.25}),
+        Case("Pad", [img], {"mode": "constant", "constant_value": 0.5,
+                            "pad_width": (0, 0, 0, 0, 1, 2, 2, 1)}),
+        Case("Pad", [img], {"mode": "edge",
+                            "pad_width": (0, 0, 0, 0, 2, 1, 0, 3)}),
+        Case("pad", [img], {"mode": "reflect",
+                            "pad_width": (0, 0, 0, 0, 2, 2, 1, 1)}),
+        Case("where", [cond, f(3, 4), f(3, 4)], grad=[1, 2]),
+        Case("reshape_like", [f(2, 6), f(3, 4)], grad=[0]),
+        Case("InstanceNorm", [img, f(3), f(3)], {"eps": 1e-3}, tol=NN),
+        Case("InstanceNorm", [f(2, 4, 7), f(4), f(4)], tol=NN),
+        Case("Dropout", [f(3, 4)], {"p": 0.5}),
+        Case("CTCLoss", [ctc, np.array([[0, 2, -1], [1, 1, 3]],
+                                       np.float32)],
+             {"blank_label": "last"}, grad=[0], tol=NN),
+        Case("CTCLoss", [ctc, np.array([[1, 2, 0], [3, 3, 1]], np.float32),
+                         np.array([6, 4], np.float32),
+                         np.array([2, 3], np.float32)],
+             {"use_data_lengths": True, "use_label_lengths": True},
+             grad=[0], tol=NN),
+    ]
+
+
 TABLES = {"elementwise": _elementwise_cases(), "tensor": _tensor_cases(),
           "reduce": _reduce_cases(), "nn": _nn_cases(),
-          "optimizer": _optimizer_cases()}
+          "optimizer": _optimizer_cases(), "layer_ops": _layer_op_cases()}
 
 
 def _outputs(result, case):
@@ -432,14 +469,16 @@ def test_registry_names_and_aliases_are_the_jax_packages():
         for other in names:   # aliases of one op in both, or in neither
             assert (get_op(other) is op) == (jax_get_op(other) is jop), (
                 name, other)
-    # every op a table holds to the JAX package
+    # every op a table holds to the JAX package; the ops that draw are held
+    # bit for bit in tests/test_torch_random.py, from one seed in both
     tested = {c.name for cases in TABLES.values() for c in cases}
-    assert set(names) - tested <= {"_copy", "stop_gradient", "cast",
-                                   "elemwise_add", "elemwise_sub",
-                                   "elemwise_mul", "elemwise_div", "_plus",
-                                   "_sub", "_mul", "_div", "_maximum",
-                                   "_minimum", "_power", "maximum",
-                                   "minimum"}
+    draws = {n for n in names if get_op(n).needs_rng and n != "Dropout"
+             and n != "LeakyReLU"}
+    assert set(names) - tested - draws <= {
+        "_copy", "stop_gradient", "cast", "elemwise_add", "elemwise_sub",
+        "elemwise_mul", "elemwise_div", "_plus", "_sub", "_mul", "_div",
+        "_maximum", "_minimum", "_power", "maximum", "minimum",
+        "ctc_loss", "_contrib_CTCLoss", "_contrib_ctc_loss"}
 
 
 def test_attrs_key_is_the_jax_packages():
@@ -453,16 +492,34 @@ def test_attrs_key_is_the_jax_packages():
 
 
 def test_rng_ops_raise_until_the_rng_is_ported():
-    from mxnet_tpu_torch.ops.registry import Op
-    op = Op("_random_thing", lambda attrs, x: x, needs_rng=True)
-    with pytest.raises(MXNetError, match="RNG"):
-        op.apply({}, torch.zeros(1))
+    """The RNG is ported; the rejection samplers still raise, naming
+    themselves, and take their key like every op that draws."""
+    for name in ("_random_gamma", "_random_poisson", "_sample_gamma"):
+        assert get_op(name).needs_rng
+    with pytest.raises(MXNetError, match="_random_gamma"):
+        tmx.nd.random.gamma(2.0, 1.0, shape=(3,), ctx=tmx.cpu())
+    with pytest.raises(MXNetError, match="_random_poisson"):
+        tmx.nd.random.poisson(2.0, shape=(3,), ctx=tmx.cpu())
 
 
 def test_rrelu_draws_and_raises_until_the_rng_is_ported():
-    x = tmx.nd.array(_f(2, 3), ctx=tmx.cpu())
-    with pytest.raises(MXNetError, match="RNG"):
-        tmx.nd.LeakyReLU(x, act_type="rrelu")
+    """rrelu draws its slopes from the call's key: bit for bit the JAX
+    op's in training for one seed, the midpoint in prediction."""
+    x = _f(2, 3)
+    for seed in (0, 5):
+        tmx.random.seed(seed)
+        jmx.random.seed(seed)
+        with tmx.autograd.train_mode():
+            got = tmx.nd.LeakyReLU(tmx.nd.array(x, ctx=tmx.cpu()),
+                                   act_type="rrelu").asnumpy()
+        with jmx.autograd.train_mode():
+            want = jmx.nd.LeakyReLU(jmx.nd.array(x),
+                                    act_type="rrelu").asnumpy()
+        np.testing.assert_array_equal(got, want)
+    got = tmx.nd.LeakyReLU(tmx.nd.array(x, ctx=tmx.cpu()),
+                           act_type="rrelu").asnumpy()
+    want = jmx.nd.LeakyReLU(jmx.nd.array(x), act_type="rrelu").asnumpy()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("name", ["sum", "mean", "prod", "max", "min"])

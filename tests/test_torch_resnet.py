@@ -269,9 +269,10 @@ def test_get_model_and_pretrained():
     net = vision.get_model("ResNet18_V2", classes=7, device="cpu")
     assert isinstance(net, vision.ResNetV2) and net.output.weight.shape \
         == (7, 512)
-    with pytest.raises(ValueError, match="(?s)Model vgg16 is not supported. "
-                                         "Available options are.*resnet50_v1"):
-        vision.get_model("vgg16", device="cpu")
+    with pytest.raises(ValueError, match="(?s)Model vgg17 is not supported. "
+                                         "Available options are.*resnet50_v1"
+                                         ".*vgg16"):
+        vision.get_model("vgg17", device="cpu")
     with pytest.raises(NotImplementedError, match="pretrained"):
         vision.resnet18_v1(pretrained=True, device="cpu")
     with pytest.raises(ValueError, match="Invalid number of layers"):
