@@ -1532,6 +1532,13 @@ ND_LM_B, ND_LM_T = 2, 256   # nd_ops' LM activations: VS_CPU's batch
 ND_RES = (32, 56, 64, 256)
 
 
+# ftrl_update's z takes (sqrt(n + g^2) - sqrt(n)) / lr * w: a square root
+# one ulp (2^-23 below 2) apart between the card's and the CPU's kernels
+# moves it by 2^-23 * max|w| / lr (2.38e-6 at the case's |w| <= 2, lr 0.1,
+# a chip probe's reading), two roots twice that
+FTRL_ATOL = 2 * 2.0 ** -23 * 2.0 / 0.1
+
+
 def nd_cases():
     """(op, inputs, attrs, differentiable inputs, tolerance) for every
     canonical op of the registry, at one real shape: ResNet-50's stage-1
@@ -1670,6 +1677,24 @@ def nd_cases():
          [], elem),
         ("adam_update", [w, g, s1, s2], dict(common, lr=TRAIN_LR), [],
          elem),
+        ("rmsprop_update", [w, g, s2], dict(common, gamma1=0.9), [], elem),
+        ("rmspropalex_update", [w, g, s2 + 1.0, 0.1 * s1, s1],
+         dict(common, gamma1=0.9, gamma2=0.9), [], elem),
+        ("ftrl_update", [w, g, s1, s2], dict(common, lamda1=0.3), [],
+         (FP32_BOUND, FTRL_ATOL)),
+        ("signsgd_update", [w, g], common, [], elem),
+        ("signum_update", [w, g, s1], dict(common, momentum=0.9,
+                                          wd_lh=0.01), [], elem),
+        ("ftml_update", [w, g, s2 + 0.1, s2, s1], dict(common, t=3), [],
+         elem),
+        ("_contrib_group_adagrad_update", [w, g, s2[:, :1]], common, [],
+         elem),
+        ("_sparse_adagrad_update", [w, g, s2], common, [], elem),
+        # a DCGAN generator's upsampling layer
+        ("Deconvolution", [f(B, 128, 16, 16), f(128, C, 4, 4, low=-0.1,
+                                                high=0.1), f(C)],
+         {"kernel": (4, 4), "stride": (2, 2), "pad": (1, 1),
+          "num_filter": C, "no_bias": False}, [0, 1, 2], gemm),
     ]
     # Dropout at the LM's activations, the zoo's and the losses' ops, and
     # the draws (each run seeded alike on both devices)
@@ -4873,6 +4898,460 @@ def random_zoo_phases(cuda_ops, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the optimizers, optimizer-state files and crash resume
+
+OPT_SHAPE = (VOCAB, DIM)      # the LM embedding's weight
+OPT_UPDATES = 3
+# learning rate, weight decay, clipping and rescale for every optimizer
+OPT_COMMON = {"learning_rate": 0.01, "wd": 0.01, "clip_gradient": 0.5,
+              "rescale_grad": 1.0 / TRAIN_B}
+# name -> (optimizer, its own arguments): the twelve, SGD and Adam, and
+# RMSProp's centered form
+OPT_CASES = {
+    "sgd": ("sgd", {"momentum": 0.9}),
+    "nag": ("nag", {"momentum": 0.9}),
+    "signum": ("signum", {"wd_lh": 0.01}),
+    "ftml": ("ftml", {}),
+    "lbsgd": ("lbsgd", {"momentum": 0.9}),
+    "dcasgd": ("dcasgd", {"momentum": 0.9}),
+    "sgld": ("sgld", {}),
+    "adam": ("adam", {}),
+    "adagrad": ("adagrad", {}),
+    "rmsprop": ("rmsprop", {}),
+    "rmsprop_centered": ("rmsprop", {"centered": True}),
+    "adadelta": ("adadelta", {}),
+    "ftrl": ("ftrl", {}),
+    "adamax": ("adamax", {}),
+    "nadam": ("nadam", {}),
+}
+# card against CPU after OPT_UPDATES updates: the JAX package's bound for
+# its update ops (tests/test_registry_ops_r5.py:51); a sign taken of a
+# momentum within SIGN_TIE of 0 may go either way
+OPT_RTOL, OPT_ATOL = 1e-5, 1e-6
+SIGN_TIE = 1e-6
+# lm_optim_resume: the four optimizers, each TRAIN_STEPS steps, saved and
+# resumed after RESUME_AT
+LM_OPTIMIZERS = {
+    "rmsprop_centered": ("rmsprop", {"learning_rate": 1e-4,
+                                     "centered": True}),
+    "nag": ("nag", {"learning_rate": 0.01, "momentum": 0.9}),
+    "ftml": ("ftml", {"learning_rate": 1e-3}),
+    "adamax": ("adamax", {"learning_rate": 2e-3, "wd": 1e-4}),
+}
+# lm_optim_resume shifts every array of the seeded LM by a seeded uniform
+# draw this wide: Adamax divides by max(beta2 * u, |g + wd * w|) with no
+# epsilon (in MXNet as here), which is 0 where a weight and its gradient
+# are (a zero-initialized key bias, whose gradient softmax cancels)
+LM_SHIFT = 1e-3
+RESUME_AT = 2
+RESUME_EPOCHS = 2
+# module_resume's kills: (fault site, calls that pass before the crash,
+# the epoch the resume finds committed); a checkpoint replaces its symbol,
+# params, states and manifest files in that order
+RESUME_KILLS = (("checkpoint.replace", 1, None), ("checkpoint.write", 3, None),
+                ("checkpoint.replace", 5, 1))
+NAG_FIT_B = 32
+
+
+def optimizer_run(name, weight, grads, dev):
+    """OPT_UPDATES updates of ``OPT_CASES[name]`` on copies of ``weight``
+    and ``grads`` on ``dev``: (the weight and state leaves, ms an update
+    by CUDA events on the card)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.module.compiled_step import _state_leaves
+
+    kind, own = OPT_CASES[name]
+    mx.random.seed(7)
+    opt = mx.optimizer.create(kind, **dict(OPT_COMMON, **own))
+    w = weight.to(dev).clone()
+    gs = [g.to(dev) for g in grads]
+    state = opt.create_state_multi_precision(0, w)
+    ms = []
+    for g in gs:
+        if dev.type == "cuda":
+            ms.append(cuda_timed(
+                lambda g=g: opt.update_multi_precision(0, w, g, state)))
+        else:
+            opt.update_multi_precision(0, w, g, state)
+    return [w] + _state_leaves(state), (float(np.median(ms)) if ms
+                                        else None)
+
+
+def optimizers_vs_cpu(dev, card):
+    """Phase: each optimizer OPT_UPDATES times on an LM-embedding-sized
+    fp32 weight with weight decay, clipping and a gradient rescale, on the
+    card and on the CPU from the same arrays and seed (SGLD's noise drawn
+    on each from the same key): weight and every state leaf within
+    OPT_RTOL/OPT_ATOL.  Prints each update's card ms."""
+    rng = np.random.RandomState(0)
+    weight = torch.from_numpy(
+        rng.normal(0, 0.05, OPT_SHAPE).astype(np.float32))
+    grads = [torch.from_numpy(rng.normal(0, 1, OPT_SHAPE).astype(np.float32))
+             for _ in range(OPT_UPDATES)]
+    report = {}
+    for name in OPT_CASES:
+        want, _ = optimizer_run(name, weight, grads, torch.device("cpu"))
+        got, ms = optimizer_run(name, weight, grads, dev)
+        worst, outside = 0.0, 0
+        for i, (a, b) in enumerate(zip(got, want)):
+            a = a.cpu()
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                fail("optimizers_vs_cpu %s: leaf %d %s, not finite %s"
+                     % (name, i, tuple(a.shape), tuple(b.shape)))
+            err = (a - b).abs()
+            worst = max(worst, float(err.max()))
+            bad = err > OPT_ATOL + OPT_RTOL * b.abs()
+            if name == "signum" and i == 0:
+                # the weight moves by the sign of the momentum (leaf 1)
+                bad &= want[1].abs() > SIGN_TIE
+            outside += int(bad.sum())
+        if outside:
+            fail("optimizers_vs_cpu %s: %d values beyond rtol %g atol %g "
+                 "(max abs %.3g)" % (name, outside, OPT_RTOL, OPT_ATOL,
+                                     worst))
+        report[name] = {"max_abs": worst, "update_ms": ms}
+        del got, want
+    torch.cuda.empty_cache()
+    phase("optimizers_vs_cpu", shape=OPT_SHAPE, updates=OPT_UPDATES,
+          optimizers=len(report), rtol=OPT_RTOL, atol=OPT_ATOL,
+          results=json.dumps(report), card='"%s"' % card)
+
+
+def lm_state(net):
+    return {n: t.detach().clone() for n, t in net.state_dict().items()}
+
+
+def load_lm_state(net, state):
+    with torch.no_grad():
+        for n, t in net.state_dict().items():
+            t.copy_(state[n])
+
+
+def optimizer_state_bytes(trainer):
+    from mxnet_tpu_torch.module.compiled_step import _state_leaves
+
+    return sum(t.numel() * t.element_size()
+               for s in trainer._updater.states.values()
+               for t in _state_leaves(s))
+
+
+def lm_optim_run(cuda_ops, net, init, fresh, name, batches, pos, tmp):
+    """One optimizer of ``lm_optim_resume``: TRAIN_STEPS steps from
+    ``init`` with saves after RESUME_AT, then ``fresh`` (zeroed) loads
+    both files and takes the remaining steps.  Returns (step ms, losses,
+    states' bytes, save s, load s, arrays not bit-equal, kernel launches,
+    final state)."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    kind, params = LM_OPTIMIZERS[name]
+    ce = SoftmaxCrossEntropyLoss()
+    load_lm_state(net, init)
+    trainer = gluon.Trainer(net.collect_params(), kind, dict(params))
+    step_ms, losses = [], []
+    launches0 = cuda_ops.flash_attention.launches
+    for k, (x, y) in enumerate(batches):
+        out = []
+        step_ms.append(cuda_timed(lambda: out.append(
+            (forward_backward(net, ce, x, y, pos), trainer.step(1)))))
+        losses.append(out[0][0].item())
+        if k + 1 == RESUME_AT:
+            t0 = time.time()
+            net.save_parameters(tmp + "/lm.params")
+            trainer.save_states(tmp + "/lm.states")
+            save_s = time.time() - t0
+    state_bytes = optimizer_state_bytes(trainer)
+    want = lm_state(net)
+    del trainer
+    with torch.no_grad():
+        for t in fresh.state_dict().values():
+            t.zero_()
+    t0 = time.time()
+    fresh.load_parameters(tmp + "/lm.params")
+    trainer = gluon.Trainer(fresh.collect_params(), kind, dict(params))
+    trainer.load_states(tmp + "/lm.states")
+    load_s = time.time() - t0
+    for x, y in batches[RESUME_AT:]:
+        forward_backward(fresh, ce, x, y, pos)
+        trainer.step(1)
+    torch.cuda.synchronize()
+    launches = cuda_ops.flash_attention.launches - launches0
+    got = lm_state(fresh)
+    differ = state_diff(want, got)
+    return (step_ms, losses, state_bytes, save_s, load_s, differ, launches,
+            want)
+
+
+def lm_optim_resume(cuda_ops, dev, card):
+    """Phase: the full-width LM (seed 0's weights shifted by LM_SHIFT)
+    trained TRAIN_STEPS steps through
+    ``gluon.Trainer`` with each of LM_OPTIMIZERS, attention in the CUDA
+    kernel (once a layer a step); after step RESUME_AT the run saves its
+    parameters and optimizer states, and a zeroed LM with a new Trainer
+    loads both and trains on to the end: its weights must equal the
+    uninterrupted run's bit for bit.  Where they do not, the optimizer runs
+    again under ``torch.use_deterministic_algorithms`` (this phase only),
+    and the ops torch names as lacking a deterministic kernel are printed.
+    Returns the kernel launches."""
+    import tempfile
+    import warnings
+
+    net = new_lm(dev, DEPTH, 0)
+    fresh = new_lm(dev, DEPTH, 1)
+    rng = np.random.RandomState(0)
+    init = {n: t + torch.from_numpy(rng.uniform(
+        -LM_SHIFT, LM_SHIFT, tuple(t.shape)).astype(np.float32)).to(dev)
+        for n, t in lm_state(net).items()}
+    batches = lm_batches(np.random.RandomState(0), TRAIN_STEPS, TRAIN_B,
+                         MAX_LEN, dev)
+    pos = torch.arange(MAX_LEN, device=dev,
+                       dtype=torch.int32).expand(TRAIN_B, MAX_LEN)
+    reset_launches(cuda_ops)
+    total, report = 0, {}
+    for name in LM_OPTIMIZERS:
+        with tempfile.TemporaryDirectory() as tmp:
+            run = lm_optim_run(cuda_ops, net, init, fresh, name, batches,
+                               pos, tmp)
+            needed = None
+            if run[5]:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.use_deterministic_algorithms(True, warn_only=True)
+                    try:
+                        run = lm_optim_run(cuda_ops, net, init, fresh, name,
+                                           batches, pos, tmp)
+                    finally:
+                        torch.use_deterministic_algorithms(False)
+                needed = sorted({str(w.message).split(" ")[0]
+                                 for w in caught
+                                 if "deterministic" in str(w.message)})
+        step_ms, losses, state_bytes, save_s, load_s, differ, launches, \
+            final = run
+        total += launches
+        steps = TRAIN_STEPS + TRAIN_STEPS - RESUME_AT
+        if launches != DEPTH * steps:
+            fail("lm_optim_resume %s: flash_attention launched %d times, "
+                 "not %d layers x %d steps" % (name, launches, DEPTH, steps))
+        if differ:
+            fail("lm_optim_resume %s: the resumed run differs from the "
+                 "uninterrupted one in %d arrays (%s), deterministic mode "
+                 "%s" % (name, len(differ), differ[:3], needed))
+        if not all(np.isfinite(losses)) or not all(
+                torch.isfinite(t).all() for t in final.values()):
+            fail("lm_optim_resume %s: not finite: %s" % (name, losses))
+        if any(torch.equal(init[n], final[n]) for n in init):
+            fail("lm_optim_resume %s left arrays untrained" % name)
+        report[name] = {"median_step_ms": median_of(step_ms),
+                        "losses": losses, "state_bytes": state_bytes,
+                        "save_s": save_s, "load_s": load_s,
+                        "launches": launches, "deterministic_mode": needed}
+        del final
+    del net, fresh, init
+    torch.cuda.empty_cache()
+    phase("lm_optim_resume", batch=(TRAIN_B, MAX_LEN), steps=TRAIN_STEPS,
+          resume_after=RESUME_AT, launches_optim=total,
+          launches_per_step=DEPTH, bitwise=True, results=json.dumps(report),
+          card='"%s"' % card)
+    return total
+
+
+def lenet_resume_fit(dev, prefix, resume=False, crash_plan=None):
+    """``models/train_mnist.py``'s LeNet through ``Module.fit`` on the
+    compiled path, RMSProp, RESUME_EPOCHS epochs of the synthetic set in
+    order, checkpointed with optimizer states every epoch; under
+    ``crash_plan`` when given, else with ``auto_resume``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import faults
+    from mxnet_tpu_torch.models import train_mnist
+
+    mx.random.seed(0)
+    it = train_mnist.get_mnist_iters(MNIST_B, prefix + "-data", ctx=dev,
+                                     shuffle=False)[0]
+    mod = mx.mod.Module(train_mnist.get_lenet(), context=dev)
+    kw = dict(num_epoch=RESUME_EPOCHS, optimizer="rmsprop",
+              optimizer_params={"learning_rate": 1e-3, "centered": True},
+              initializer=mx.init.Xavier(), compiled=True,
+              epoch_end_callback=[mx.callback.module_checkpoint(
+                  mod, prefix, save_optimizer_states=True)])
+    if crash_plan is not None:
+        with faults.plan(crash_plan):
+            mod.fit(it, **kw)
+    else:
+        mod.fit(it, auto_resume=resume, **kw)
+    if mod._compiled_step is None:
+        fail("module_resume: the compiled step did not run")
+    args, _ = mod.get_params()
+    return {k: v._data.clone() for k, v in args.items()}
+
+
+def module_resume(dev, card):
+    """Phase (cuDNN deterministic, as ``module_fit``): LeNet trained by
+    ``Module.fit`` on the compiled path with RMSProp and
+    ``module_checkpoint(save_optimizer_states=True)``; killed at each of
+    RESUME_KILLS (the first two are tests/test_compiled_fit.py's, which
+    tear the first checkpoint; the third tears the second, after the first
+    committed), each then ``fit(auto_resume=True)``: it resumes from the
+    epoch the manifest committed, and the parameters equal the
+    uninterrupted run's bit for bit."""
+    import tempfile
+
+    from mxnet_tpu_torch import faults
+
+    with tempfile.TemporaryDirectory() as tmp, deterministic_cudnn():
+        t0 = time.time()
+        ref = lenet_resume_fit(dev, tmp + "/ref")
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+        kills = []
+        for n, (site, after, epoch) in enumerate(RESUME_KILLS):
+            prefix = "%s/kill%d" % (tmp, n)
+            plan = faults.FaultPlan(n).add(site, kind="crash", after=after,
+                                           times=1)
+            try:
+                lenet_resume_fit(dev, prefix, crash_plan=plan)
+                fail("module_resume: no crash at %s" % site)
+            except faults.SimulatedCrash:
+                pass
+            from mxnet_tpu_torch.model import latest_complete_checkpoint
+            found = latest_complete_checkpoint(prefix)
+            t0 = time.time()
+            resumed = lenet_resume_fit(dev, prefix, resume=True)
+            torch.cuda.synchronize()
+            differ = state_diff(ref, resumed)
+            if differ or found != epoch:
+                fail("module_resume: after a kill at %s#%d the run resumed "
+                     "from epoch %s (not %s), parameters apart: %s"
+                     % (site, after, found, epoch, differ))
+            kills.append({"site": site, "after": after,
+                          "resumed_from_epoch": found,
+                          "resume_fit_s": time.time() - t0})
+    phase("module_resume", network="lenet", batch=MNIST_B,
+          epochs=RESUME_EPOCHS, optimizer="rmsprop_centered",
+          cudnn_deterministic=True, bitwise_params=len(ref), fit_s=fit_s,
+          kills=json.dumps(kills), card='"%s"' % card)
+
+
+def resnet_nag_fit(dev, card):
+    """Phase: resnet50_v1 at 224 x 224, batch NAG_FIT_B, fp32, through
+    ``image_classification.main --optimizer nag`` (one epoch of the
+    synthetic set): every step timed by CUDA events, img/s from the
+    median step after the first."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    train_step = ic.train_step
+    step_ms, optimizers = [], set()
+
+    def timed_step(net, trainer, *args):
+        optimizers.add(type(trainer._optimizer).__name__)
+        out = []
+        step_ms.append(cuda_timed(lambda: out.append(
+            train_step(net, trainer, *args))))
+        return out[0]
+
+    mx.random.seed(0)
+    ic.train_step = timed_step
+    try:
+        net = ic.main(["--network", "resnet50_v1", "--batch-size",
+                       str(NAG_FIT_B), "--num-epochs", "1", "--optimizer",
+                       "nag"])
+    finally:
+        ic.train_step = train_step
+    if optimizers != {"NAG"}:
+        fail("resnet_nag_fit trained with %s" % optimizers)
+    if not all(torch.isfinite(t).all() for t in net.state_dict().values()):
+        fail("resnet_nag_fit left non-finite weights")
+    median_ms = median_of(step_ms)
+    del net
+    torch.cuda.empty_cache()
+    phase("resnet_nag_fit", network="resnet50_v1", batch=NAG_FIT_B,
+          image=(3, 224, 224), dtype="float32", steps=len(step_ms),
+          step_ms=json.dumps(step_ms), median_step_ms=median_ms,
+          img_per_s=NAG_FIT_B / (median_ms / 1e3), card='"%s"' % card)
+
+
+# (layer, its arguments, input shape): DCGAN-style upsampling layers
+CONV_T_CASES = (
+    ("Conv1DTranspose", (64, 4), {"strides": 2, "padding": 1},
+     (8, 128, 256)),
+    ("Conv2DTranspose", (64, 4), {"strides": 2, "padding": 1},
+     (8, 128, 32, 32)),
+    ("Conv2DTranspose", (64, 3), {"strides": 2, "padding": 1,
+                                  "output_padding": 1, "groups": 2},
+     (8, 128, 16, 16)),
+    ("Conv3DTranspose", (32, 4), {"strides": 2, "padding": 1},
+     (2, 64, 8, 16, 16)),
+)
+
+
+def conv_transpose_vs_cpu(dev, card):
+    """Phase: the transposed convolutions (the ``Deconvolution`` op,
+    cuDNN on the card) forward and backward on the card against the CPU
+    from the same weights, inputs and head gradient, at ``nd_ops``' bounds
+    for a convolution: the output within SERVE_RTOL/SERVE_ATOL, each
+    gradient's gap within GRAD_REL_BOUND of its norm."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+
+    rng = np.random.RandomState(0)
+    report = {}
+    for i, (layer, args, kw, shape) in enumerate(CONV_T_CASES):
+        x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+        head = None
+        results = []
+        for d in (torch.device("cpu"), dev):
+            mx.random.seed(i)
+            block = getattr(nn, layer)(*args, in_channels=shape[1],
+                                       device=d, **kw)
+            block.initialize(mx.init.Xavier())
+            xd = x.detach().to(d).requires_grad_()
+            y = block(xd)
+            if head is None:
+                head = torch.from_numpy(rng.normal(
+                    0, 1, tuple(y.shape)).astype(np.float32))
+            y.backward(head.to(d))
+            results.append([y.detach().cpu(), xd.grad.cpu()]
+                           + [p.grad.cpu() for p in block.parameters()])
+        (want_y, *want_g), (got_y, *got_g) = results
+        label = "%s%s" % (layer, shape)
+        y_err = float((got_y - want_y).abs().max())
+        g_rel = max(float((g - w).norm() / w.norm())
+                    for g, w in zip(got_g, want_g))
+        report[label] = {"output_max_abs": y_err, "grad_max_rel": g_rel}
+        if not torch.allclose(got_y, want_y, rtol=SERVE_RTOL,
+                              atol=SERVE_ATOL) or g_rel > GRAD_REL_BOUND:
+            fail("conv_transpose_vs_cpu %s: card and CPU apart: %s"
+                 % (label, report[label]))
+    phase("conv_transpose_vs_cpu", cases=len(report), rtol=SERVE_RTOL,
+          atol=SERVE_ATOL, grad_rel_bound=GRAD_REL_BOUND,
+          results=json.dumps(report), card='"%s"' % card)
+
+
+def optim_resume_phases(cuda_ops, dev, card):
+    """The optimizers, their state files and crash resume; the transposed
+    convolutions.  Returns the kernel's launches (the LM's)."""
+    seconds = {}
+
+    def timed(fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        seconds[fn.__name__] = time.time() - t0
+        return out
+
+    timed(optimizers_vs_cpu, dev, card)
+    launches = timed(lm_optim_resume, cuda_ops, dev, card)
+    reset_launches(cuda_ops)
+    timed(module_resume, dev, card)
+    timed(resnet_nag_fit, dev, card)
+    timed(conv_transpose_vs_cpu, dev, card)
+    phase("optim_resume_seconds", **seconds)
+    if cuda_ops.flash_attention.launches:
+        fail("the LeNet, ResNet and transposed-conv phases launched "
+             "flash_attention %d times" % cuda_ops.flash_attention.launches)
+    return launches
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -4951,6 +5430,7 @@ def main():
     launches_exported = exported_phases(cuda_ops, dev, smi)
     launches_fleet = serving_tier_phases(cuda_ops, dev, smi)
     launches_word_lm = random_zoo_phases(cuda_ops, dev, smi)
+    launches_optim = optim_resume_phases(cuda_ops, dev, smi)
 
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -4958,7 +5438,7 @@ def main():
               "launches": launches_serve + launches_train
               + launches_train_bf16 + launches_nd + launches_functional
               + launches_hybrid + launches_exported + launches_fleet
-              + launches_word_lm,
+              + launches_word_lm + launches_optim,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
               "launches_hybrid_train": launches_hybrid,
@@ -4968,7 +5448,8 @@ def main():
               "launches_decode": launches_decode,
               "launches_exported": launches_exported,
               "launches_fleet": launches_fleet,
-              "launches_word_lm": launches_word_lm}
+              "launches_word_lm": launches_word_lm,
+              "launches_optim": launches_optim}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

@@ -39,7 +39,7 @@ def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
         done = epoch + 1
         if done % period == 0:
             mod.save_checkpoint(prefix, done, save_optimizer_states)
-    # the prefix a resuming fit would find (resume is not ported yet)
+    # the prefix fit(auto_resume=True) finds
     _save.checkpoint_prefix = prefix
     return _save
 

@@ -326,6 +326,22 @@ class Block(nn.Module):
             return type(out)(NDArray(o) for o in out)
         return NDArray(out)
 
+    def summary(self, *inputs):
+        """Print each parameter whose shape is known, and their total
+        count, as the JAX block's table (:276-288); ``inputs`` are not
+        used there either."""
+        lines = []
+        n_params = 0
+        for name, p in self.collect_params().items():
+            if p.shape and all(s > 0 for s in p.shape):
+                cnt = 1
+                for s in p.shape:
+                    cnt *= s
+                n_params += cnt
+                lines.append("%-60s %s" % (name, str(p.shape)))
+        lines.append("Total params: %d" % n_params)
+        print("\n".join(lines))
+
     def register_child(self, block, name=None):
         """Register ``block`` as a child under ``name`` (default: the count
         of children so far), as the JAX block does (:229-232)."""

@@ -4,13 +4,20 @@ from .activations import ELU, GELU, SELU, Activation, LeakyReLU, PReLU, Swish
 from .basic_layers import (BatchNorm, Dense, Dropout, Embedding, Flatten,
                            HybridLambda, HybridSequential, InstanceNorm,
                            Lambda, LayerNorm, Sequential)
-from .conv_layers import (AvgPool2D, Conv1D, Conv2D, Conv3D,
-                          GlobalAvgPool2D, GlobalMaxPool2D, MaxPool2D,
+from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D,
+                          Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
+                          Conv3DTranspose, GlobalAvgPool1D, GlobalAvgPool2D,
+                          GlobalAvgPool3D, GlobalMaxPool1D, GlobalMaxPool2D,
+                          GlobalMaxPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
                           ReflectionPad2D, channels_last)
 
-__all__ = ["Activation", "AvgPool2D", "BatchNorm", "Conv1D", "Conv2D",
-           "Conv3D", "Dense", "Dropout", "ELU", "Embedding", "Flatten",
-           "GELU", "GlobalAvgPool2D", "GlobalMaxPool2D", "HybridLambda",
+__all__ = ["Activation", "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
+           "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose",
+           "Conv3D", "Conv3DTranspose", "Dense", "Dropout", "ELU",
+           "Embedding", "Flatten", "GELU", "GlobalAvgPool1D",
+           "GlobalAvgPool2D", "GlobalAvgPool3D", "GlobalMaxPool1D",
+           "GlobalMaxPool2D", "GlobalMaxPool3D", "HybridLambda",
            "HybridSequential", "InstanceNorm", "Lambda", "LayerNorm",
-           "LeakyReLU", "MaxPool2D", "PReLU", "ReflectionPad2D", "SELU",
-           "Sequential", "Swish", "channels_last"]
+           "LeakyReLU", "MaxPool1D", "MaxPool2D", "MaxPool3D", "PReLU",
+           "ReflectionPad2D", "SELU", "Sequential", "Swish",
+           "channels_last"]

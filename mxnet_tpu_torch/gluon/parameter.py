@@ -1,5 +1,6 @@
 """Parameters (counterpart of ``mxnet_tpu/gluon/parameter.py``:
-``DeferredInitializationError``, ``Parameter`` and ``ParameterDict``).
+``DeferredInitializationError``, ``Parameter``, ``Constant`` and
+``ParameterDict``).
 
 A Gluon :class:`Parameter` holds a parameter's name, ``grad_req``, shape
 (0 for a dimension not known yet), dtype, initializer and multipliers.
@@ -39,8 +40,8 @@ from ..base import MXNetError, as_dtype, tensor_from_numpy
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict",
-           "cast", "watch_cast"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict", "cast", "watch_cast"]
 
 _LAZY = (UninitializedParameter, UninitializedBuffer)
 
@@ -325,6 +326,25 @@ class Parameter:
             return NDArray(torch.zeros_like(t.detach()))
         return NDArray(t.grad)
 
+    def list_data(self):
+        """The parameter's arrays, one a device: a list of one NDArray."""
+        return [self.data()]
+
+    def list_grad(self):
+        """The gradients, one a device: a list of one NDArray."""
+        return [self.grad()]
+
+    def list_ctx(self):
+        """The devices the parameter lives on: a list of one (the device a
+        deferred parameter will be made on)."""
+        t = self._tensor()
+        if isinstance(t, _LAZY):
+            if self._deferred_init:
+                return [self._deferred_init[1]]
+            raise RuntimeError("Parameter '%s' has not been initialized"
+                               % self.name)
+        return [t.device]
+
     def zero_grad(self):
         t = self._tensor()
         if not isinstance(t, _LAZY) and t.grad is not None:
@@ -362,6 +382,24 @@ class Parameter:
             block._buffers[attr] = t.to(torch_dtype)
         else:
             cast(t, torch_dtype)
+
+
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient (``grad_req
+    'null'``), so a Trainer never updates it."""
+
+    def __init__(self, name, value):
+        self.value = _as_tensor(value)
+        value = self.value
+
+        class Init(init_mod.Initializer):
+            def _init_weight(self, _, arr):
+                arr._data.copy_(value.to(arr._data.dtype))
+
+            _init_default = _init_weight
+
+        super().__init__(name, grad_req="null", shape=tuple(value.shape),
+                         dtype=value.dtype, init=Init())
 
 
 class ParameterDict:
@@ -451,6 +489,17 @@ class ParameterDict:
                     "Parameter '%s' already exists with %s=%s; cannot "
                     "re-request it with %s=%s." % (name, attr, have, attr,
                                                    want))
+        return param
+
+    def get_constant(self, name, value=None):
+        """The constant ``prefix + name``: the existing one, or a new
+        :class:`Constant` holding ``value``."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError("No constant named '{}'.".format(name))
+            param = self._params[name] = Constant(name, value)
         return param
 
     def update(self, other):

@@ -158,22 +158,30 @@ class Trainer:
         self._update()
 
     def _update(self):
+        """Update each trainable parameter, a Gluon one over its
+        ``list_data()``/``list_grad()`` as the JAX Trainer walks them."""
         if self._params is None:
             self._init_params()
-        for i, param in enumerate(self._params):
-            if param is not None and param.requires_grad:
+        for i, (entry, param) in enumerate(zip(self._entries, self._params)):
+            if param is None or not param.requires_grad:
+                continue
+            if isinstance(entry, parameter.Parameter):
+                for arr, grad in zip(entry.list_data(), entry.list_grad()):
+                    self._updater(i, grad._data, arr._data)
+            else:
                 grad = param.grad
                 self._updater(i, torch.zeros_like(param) if grad is None
                               else grad, param)
 
     def save_states(self, fname):
-        """Write the optimizer's states and attributes to ``fname``."""
+        """Write the optimizer's states and attributes to ``fname``, in the
+        file both packages read (``optimizer.Updater.get_states``)."""
         with open(fname, "wb") as fout:
             fout.write(self._updater.get_states(dump_optimizer=True))
 
     def load_states(self, fname):
-        """Read what :meth:`save_states` wrote (a pickle: load only files
-        this package wrote)."""
+        """Read a states file that either package's ``save_states``
+        wrote."""
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
         self._optimizer = self._updater.optimizer

@@ -7,8 +7,9 @@ forward_backward, update and update_metric with the epoch callbacks;
 trains through one ``CompiledTrainStep`` (one CUDA graph a window on the
 card) unless the configuration is one the capture cannot express, where it
 falls back to the eager loop with a one-line warning, as the JAX package
-does.  Resuming (``resume_from``, ``auto_resume``), the ZeRO update
-(``shard_update``, ``wire_format``), the device feed
+does.  ``fit(resume_from=, auto_resume=)`` restores the newest checkpoint
+that the manifest committed (crash recovery, docs/ROBUSTNESS.md).  The ZeRO
+update (``shard_update``, ``wire_format``), the device feed
 (``prefetch_to_device``) and monitors are not ported yet and raise,
 naming the ROADMAP item that brings them.
 """
@@ -157,7 +158,7 @@ class BaseModule:
             resume_from=None, auto_resume=False, compiled=None,
             steps_per_call=1, metric_interval=None, donate="auto",
             shard_update=False, wire_format=None, wire_threshold=0.5):
-        """Train the module (``base_module.py:140-178``).
+        """Train the module (``base_module.py:140-260``).
 
         ``compiled=None``/``True`` captures forward, backward and the
         optimizer update as one ``CompiledTrainStep``: parameters and
@@ -169,22 +170,61 @@ class BaseModule:
         express (kvstore updates, optimizers that are not trace_safe,
         metrics with no device twin) fall back to the eager loop with a
         one-line warning; ``compiled=False`` forces it.  ``donate`` is
-        accepted and changes nothing (a graph updates in place)."""
+        accepted and changes nothing (a graph updates in place).
+
+        Crash recovery (``base_module.py:191-260``): ``resume_from=prefix``
+        finds the newest checkpoint that ``prefix-manifest.json`` committed
+        and whose files hash-verify (a torn or uncommitted save is
+        skipped), restores its parameters, the optimizer state when the
+        manifest lists the ``.states`` file, and the epoch, and trains on
+        from there; with no complete checkpoint it raises.
+        ``auto_resume=True`` resumes when a complete checkpoint exists and
+        starts fresh otherwise; without ``resume_from`` it takes the prefix
+        from a ``do_checkpoint``/``module_checkpoint`` epoch callback (their
+        ``checkpoint_prefix``)."""
         assert num_epoch is not None, "please specify number of epochs"
         for flag, value, item in (
-                ("resume_from", resume_from, "queue 1 #8"),
-                ("auto_resume", auto_resume, "queue 1 #8"),
-                ("shard_update", shard_update, "queue 1 #13"),
-                ("wire_format", wire_format, "queue 1 #13"),
-                ("prefetch_to_device", prefetch_to_device, "queue 1 #12"),
-                ("monitor", monitor, "queue 1 #14"),
-                ("sparse_row_id_fn", sparse_row_id_fn, "queue 1 #14")):
+                ("shard_update", shard_update, "queue 1 #8"),
+                ("wire_format", wire_format, "queue 1 #8"),
+                ("prefetch_to_device", prefetch_to_device, "queue 1 #6"),
+                ("monitor", monitor, "queue 1 #9"),
+                ("sparse_row_id_fn", sparse_row_id_fn, "queue 1 #9")):
             if value:
                 raise MXNetError("fit(%s=...) is not ported yet (ROADMAP %s)"
                                  % (flag, item))
+        import os
         from ..initializer import Uniform
         if initializer is None:
             initializer = Uniform(0.01)
+
+        resume_prefix = resume_from
+        if resume_prefix is None and auto_resume and \
+                epoch_end_callback is not None:
+            for cb in _as_list(epoch_end_callback):
+                prefix = getattr(cb, "checkpoint_prefix", None)
+                if prefix:
+                    resume_prefix = prefix
+                    break
+        resume_epoch = None
+        if resume_prefix is not None:
+            from ..model import latest_complete_checkpoint, load_checkpoint
+            resume_epoch = latest_complete_checkpoint(resume_prefix)
+            if resume_epoch is None:
+                if not auto_resume:
+                    raise FileNotFoundError(
+                        "resume_from=%r: no complete checkpoint found "
+                        "(torn/partial saves are skipped via the manifest)"
+                        % resume_prefix)
+                self.logger.info("auto_resume: no complete checkpoint under "
+                                 "%r; starting fresh", resume_prefix)
+            else:
+                _, arg_params, aux_params = load_checkpoint(
+                    resume_prefix, resume_epoch, ctx=self._context[0])
+                force_init = True
+                allow_missing = False
+                begin_epoch = max(begin_epoch, resume_epoch)
+                self.logger.info("Resuming from checkpoint %r epoch %d",
+                                 resume_prefix, resume_epoch)
 
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -194,6 +234,20 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+
+        if resume_epoch is not None:
+            # the optimizer state comes along only when the manifest
+            # committed it for that epoch: a stray .states from a torn save
+            # is not trusted (checkpoint_files lists hash-verified files)
+            from ..model import checkpoint_files
+            state_file = "%s-%04d.states" % (resume_prefix, resume_epoch)
+            listed = checkpoint_files(resume_prefix, resume_epoch)
+            if listed is not None and state_file in listed and \
+                    os.path.exists(state_file) and \
+                    hasattr(self, "load_optimizer_states"):
+                self.load_optimizer_states(state_file)
+                self.logger.info("Restored optimizer state from %r",
+                                 state_file)
 
         if validation_metric is None:
             validation_metric = eval_metric

@@ -20,8 +20,12 @@ on the card and replays after that (the JAX package compiles it with
   and nothing inside the step;
 * the learning rate (scheduler applied on the host) and the step count
   ``t`` enter as per-step 0-d tensors copied in before each replay, so
-  schedules and Adam's bias correction run captured without a new capture
-  (``_step_hyperparams``).
+  schedules and the ``t``-dependent arithmetic of every ``trace_safe``
+  optimizer (Adam's and Adamax's bias corrections, FTML's ``t`` attribute)
+  run captured without a new capture (``_step_hyperparams``);
+* a resume that loads optimizer states after the step was built copies
+  them into the tensors the graph updates (:meth:`reload_optimizer_states`,
+  called by ``Module.load_optimizer_states``).
 
 Two frontends: :meth:`CompiledTrainStep.from_module` (a bound ``Module``
 and its optimizer: the executor's graph, gradients with ones head
@@ -147,7 +151,8 @@ class CompiledTrainStep:
 
     def __init__(self, microstep, state, optimizer, opt_bindings,
                  opt_indices, metrics, metric_keys, n_inputs,
-                 steps_per_call, device, donate="auto", owner=None):
+                 steps_per_call, device, donate="auto", owner=None,
+                 updater=None):
         if steps_per_call < 1:
             raise ValueError("steps_per_call must be >= 1")
         self._microstep = microstep
@@ -162,6 +167,7 @@ class CompiledTrainStep:
         self.steps_per_call = steps_per_call
         self._device = device
         self._owner = owner
+        self._updater = updater
         self.cached_op = CachedOp(self._make_forward_fn(), state,
                                   aux_names=tuple(state))
 
@@ -279,6 +285,22 @@ class CompiledTrainStep:
                 s.zero_()
                 c.zero_()
 
+    def reload_optimizer_states(self):
+        """Copy the updater's states, loaded from a file since this step
+        was built, into the state tensors the step updates in place, and
+        point the updater at those tensors again (a resume under the
+        compiled path)."""
+        updater = self._updater
+        for index, _pkey, template, leaf_keys in self._opt_bindings:
+            if updater.states_synced.get(index, True):
+                continue
+            loaded = updater._to_tensor(updater.states[index], self._device)
+            with torch.no_grad():
+                for key, value in zip(leaf_keys, _state_leaves(loaded)):
+                    _val(self.state[key]).copy_(value)
+            updater.states[index] = template
+            updater.states_synced[index] = True
+
     def cache_stats(self):
         """The CachedOp's signature counts."""
         return self.cached_op.cache_stats()
@@ -394,7 +416,7 @@ class CompiledTrainStep:
 
         return cls(microstep, state, opt, opt_bindings, opt_indices, metrics,
                    metric_keys, len(input_names), steps_per_call, device,
-                   donate, owner=module)
+                   donate, owner=module, updater=updater)
 
     @classmethod
     def from_block(cls, block, loss_fn, optimizer, n_inputs=1,

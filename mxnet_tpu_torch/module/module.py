@@ -271,7 +271,8 @@ class Module(BaseModule):
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
                 optimizer_params["rescale_grad"] = rescale_grad
-            optimizer = opt.create(optimizer, param_idx2name=idx2name,
+            optimizer = opt.create(optimizer, sym=self.symbol,
+                                   param_idx2name=idx2name,
                                    **optimizer_params)
         else:
             assert isinstance(optimizer, opt.Optimizer)
@@ -344,17 +345,21 @@ class Module(BaseModule):
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):
-        """The updater's states (a pickle of numpy arrays, which this
-        package reads back; a file both packages read is ROADMAP queue 1
-        #6)."""
+        """Write the updater's states, atomically, in the file both
+        packages read (``optimizer.Updater.get_states``)."""
         assert self.optimizer_initialized
         from ..util import write_atomic
         write_atomic(fname, self._updater.get_states())
 
     def load_optimizer_states(self, fname):
+        """Read a states file that either package wrote.  Under a compiled
+        train step the loaded values are copied into the state tensors its
+        graph updates in place."""
         assert self.optimizer_initialized
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
+        if getattr(self, "_compiled_step", None) is not None:
+            self._compiled_step.reload_optimizer_states()
 
     def _compiled_step_handles(self):
         """Everything CompiledTrainStep.from_module needs to capture this

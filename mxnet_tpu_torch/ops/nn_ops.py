@@ -1,14 +1,16 @@
 """Neural-network ops (the ResNet and LM subset of
 ``mxnet_tpu/ops/nn_ops.py``): ``FullyConnected`` :47, ``Convolution`` :79,
-``Pooling`` :161, ``BatchNorm`` :329, ``LayerNorm`` :354, ``Activation``
-:416, ``LeakyReLU`` :441, ``softmax`` :476, ``log_softmax`` :486,
-``SoftmaxOutput`` :512, ``softmax_cross_entropy`` :633, ``Dropout``
-:711, ``InstanceNorm`` :367 and ``CTCLoss`` :966.
+``Deconvolution`` :110, ``Pooling`` :161, ``BatchNorm`` :329,
+``LayerNorm`` :354, ``Activation`` :416, ``LeakyReLU`` :441, ``softmax``
+:476, ``log_softmax`` :486, ``SoftmaxOutput`` :512,
+``softmax_cross_entropy`` :633, ``Dropout`` :711, ``InstanceNorm`` :367
+and ``CTCLoss`` :966.
 
 The Gluon layers compute through the functions here
-(:func:`fully_connected`, :func:`convolution`, :func:`pooling`,
-:func:`batch_norm_output` and :func:`batch_stats`, :func:`layer_norm`,
-``ACTIVATIONS``), so a layer and its op share one arithmetic.  The
+(:func:`fully_connected`, :func:`convolution`, :func:`deconvolution`,
+:func:`pooling`, :func:`batch_norm_output` and :func:`batch_stats`,
+:func:`layer_norm`, ``ACTIVATIONS``), so a layer and its op share one
+arithmetic.  The
 reference's convolution, pooling and batch norm are XLA ops, not Pallas
 kernels, so these run PyTorch's (cuDNN's) kernels.
 """
@@ -21,7 +23,8 @@ import torch.nn.functional as F
 
 from .registry import alias, register
 
-__all__ = ["ACTIVATIONS", "fully_connected", "convolution", "pooling",
+__all__ = ["ACTIVATIONS", "fully_connected", "convolution",
+           "deconvolution", "pooling",
            "batch_norm_output", "batch_stats", "layer_norm", "dropout",
            "instance_norm"]
 
@@ -90,6 +93,36 @@ def _convolution(attrs, data, weight, bias=None):
         _pair(attrs.get("stride", 1), nd), _pair(attrs.get("pad", 0), nd),
         _pair(attrs.get("dilate", 1), nd), int(attrs.get("num_group", 1)),
         layout is not None and not layout.startswith("NC"))
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def deconvolution(x, weight, bias, stride, pad, adj, dilate, groups):
+    """N-d transposed convolution of channel-first data, MXNet's
+    ``Deconvolution``: the weight is ``(in, out/groups, *kernel)``, the
+    output ``(i-1)*s + (k-1)*d + 1 - 2p + adj`` long, ``adj`` added on the
+    trailing side (torch's ``output_padding``, which must stay below the
+    stride or the dilation)."""
+    return _CONV_T[x.dim() - 2](x, weight, bias, stride, pad, adj, groups,
+                                dilate)
+
+
+@register("Deconvolution")
+def _deconvolution(attrs, data, weight, bias=None):
+    """Transposed convolution (``nn_ops.py:110``); channel-first layouts
+    only, as in the JAX op."""
+    nd = data.dim() - 2
+    layout = attrs.get("layout")
+    if layout is not None and not layout.startswith("NC"):
+        raise ValueError("Deconvolution supports channel-first layouts "
+                         "only; got layout=%r" % (layout,))
+    return deconvolution(
+        data, weight, None if attrs.get("no_bias", True) else bias,
+        _pair(attrs.get("stride", 1), nd), _pair(attrs.get("pad", 0), nd),
+        _pair(attrs.get("adj", 0), nd), _pair(attrs.get("dilate", 1), nd),
+        int(attrs.get("num_group", 1)))
 
 
 def pooling(x, kernel, stride, pad, pool_type, ceil_mode, global_pool,
@@ -559,6 +592,18 @@ def _conv_param_shapes(attrs, in_shapes):
     return out
 
 
+def _deconv_param_shapes(attrs, in_shapes):
+    data = in_shapes[0]
+    nf = int(attrs["num_filter"])
+    ng = int(attrs.get("num_group", 1))
+    kernel = (attrs["kernel"],) if isinstance(attrs["kernel"], int) \
+        else tuple(attrs["kernel"])
+    out = {"weight": (data[1], nf // ng) + kernel}
+    if not attrs.get("no_bias", True):
+        out["bias"] = (nf,)
+    return out
+
+
 def _bn_param_shapes(attrs, in_shapes):
     c = in_shapes[0][int(attrs.get("axis", 1))]
     return {"gamma": (c,), "beta": (c,), "moving_mean": (c,),
@@ -599,6 +644,9 @@ def set_symbol_specs():
     specs = {
         "FullyConnected": (_with_bias, _fc_param_shapes),
         "Convolution": (_with_bias, _conv_param_shapes),
+        "Deconvolution": (lambda attrs: ["data", "weight"] + (
+            [] if attrs.get("no_bias", True) else ["bias"]),
+            _deconv_param_shapes),
         "BatchNorm": (["data", "gamma", "beta", "aux:moving_mean",
                        "aux:moving_var"], _bn_param_shapes),
         "LayerNorm": (["data", "gamma", "beta"], _ln_param_shapes),

@@ -13,6 +13,10 @@ package's.
   seeded head gradients.
 - ``CTCLoss`` per sample and its gradient against the JAX op, with and
   without lengths.
+- The transposed convolutions and the 1-D and 3-D pools: output and
+  gradients at ``TOL``, graph JSON string-equal; ``Block.summary``'s table
+  equal; ``Parameter.list_data``/``list_grad``/``list_ctx``;
+  ``gluon.Constant`` (and where it diverges, deliberately).
 """
 import contextlib
 
@@ -164,6 +168,34 @@ LAYERS = {
     "Lambda_fn": (lambda nn, m: nn.Lambda(
         lambda x: m.nd.relu(x) + x * 0.5), [_x(3, 4)]),
 }
+# the transposed convolutions and the 1-D and 3-D pools
+CONV_POOL = {
+    "Conv1DTranspose": (lambda nn, m: nn.Conv1DTranspose(
+        4, 3, strides=2, padding=1, output_padding=1), [_x(2, 3, 7)]),
+    "Conv2DTranspose": (lambda nn, m: nn.Conv2DTranspose(
+        6, (3, 2), strides=(2, 1), padding=(1, 0), output_padding=(1, 0),
+        dilation=(1, 2), groups=2, in_channels=4, activation="relu"),
+        [_x(2, 4, 5, 6)]),
+    "Conv2DTranspose_nobias": (lambda nn, m: nn.Conv2DTranspose(
+        3, 3, use_bias=False), [_x(2, 2, 4, 4)]),
+    "Conv3DTranspose": (lambda nn, m: nn.Conv3DTranspose(
+        2, 2, strides=2, in_channels=3), [_x(1, 3, 3, 4, 3)]),
+    "MaxPool1D": (lambda nn, m: nn.MaxPool1D(3, 2, 1, ceil_mode=True),
+                  [_x(2, 3, 8)]),
+    "MaxPool3D": (lambda nn, m: nn.MaxPool3D(2), [_x(2, 2, 4, 5, 4)]),
+    "AvgPool1D": (lambda nn, m: nn.AvgPool1D(3, 2, 1,
+                                             count_include_pad=False),
+                  [_x(2, 3, 9)]),
+    "AvgPool3D": (lambda nn, m: nn.AvgPool3D((2, 3, 2), ceil_mode=True),
+                  [_x(2, 2, 5, 7, 4)]),
+    "GlobalMaxPool1D": (lambda nn, m: nn.GlobalMaxPool1D(), [_x(2, 3, 6)]),
+    "GlobalMaxPool3D": (lambda nn, m: nn.GlobalMaxPool3D(),
+                        [_x(2, 3, 3, 4, 2)]),
+    "GlobalAvgPool1D": (lambda nn, m: nn.GlobalAvgPool1D(), [_x(2, 3, 6)]),
+    "GlobalAvgPool3D": (lambda nn, m: nn.GlobalAvgPool3D(),
+                        [_x(2, 3, 3, 4, 2)]),
+}
+LAYERS.update(CONV_POOL)
 
 
 def _seq(nn):
@@ -302,3 +334,129 @@ class _Lengths(_PosWeight):
 
     def __call__(self, pred, label, *lengths):
         return self._loss(pred, label, *lengths)
+
+
+@pytest.mark.parametrize("name", sorted(CONV_POOL))
+def test_conv_and_pool_layers_trace_the_jax_graph(name):
+    build, _ = CONV_POOL[name]
+    out = {}
+    for package in (mx, tmx):
+        scope = tmx.cpu() if package is tmx else contextlib.nullcontext()
+        with package.name.NameManager(), scope:
+            block = build(package.gluon.nn, package)
+            out[package] = block(package.sym.var("data"))
+    assert out[tmx].list_arguments() == out[mx].list_arguments()
+    assert out[tmx].tojson() == out[mx].tojson()
+
+
+def test_transposed_conv_refuses_channels_last_as_jax():
+    for package in (mx, tmx):
+        scope = tmx.cpu() if package is tmx else contextlib.nullcontext()
+        with package.gluon.nn.channels_last(), scope:
+            with pytest.raises(ValueError, match="channel-last"):
+                package.gluon.nn.Conv2DTranspose(4, 3)
+
+
+def _summary(package, capsys):
+    package.random.seed(0)
+    scope = tmx.cpu() if package is tmx else contextlib.nullcontext()
+    with package.name.NameManager(), scope:
+        net = package.gluon.nn.HybridSequential()
+        with net.name_scope():
+            net.add(package.gluon.nn.Conv2D(4, 3, in_channels=3),
+                    package.gluon.nn.BatchNorm(),
+                    package.gluon.nn.Conv2DTranspose(2, 2, in_channels=4),
+                    package.gluon.nn.Dense(5))
+    net.initialize()
+    net.summary()
+    return capsys.readouterr().out
+
+
+def test_block_summary_prints_the_jax_table(capsys):
+    want = _summary(mx, capsys)
+    got = _summary(tmx, capsys)
+    assert "Total params" in want
+    assert got == want
+
+
+def test_list_data_grad_and_ctx():
+    with tmx.cpu():
+        net = tgluon.nn.Dense(3, in_units=4)
+    net.initialize()
+    x = tmx.nd.array(_x(2, 4), ctx=tmx.cpu())
+    with tmx.autograd.record():
+        loss = net(x).sum()
+    loss.backward()
+    for p in net.collect_params().values():
+        data, grad, ctx = p.list_data(), p.list_grad(), p.list_ctx()
+        assert len(data) == len(grad) == len(ctx) == 1
+        assert data[0]._data is p._check_and_get()
+        assert grad[0]._data is p._check_and_get().grad
+        assert ctx == [torch.device("cpu")]
+    jnet = jgluon.nn.Dense(3, in_units=4)
+    jnet.initialize()
+    jp = jnet.collect_params()[jnet.prefix + "weight"]
+    assert len(jp.list_data()) == len(jp.list_grad()) == 1
+    with tmx.cpu():
+        deferred = tgluon.nn.Dense(3)
+    deferred.initialize()
+    w = deferred.collect_params()[deferred.prefix + "weight"]
+    assert w.list_ctx() == [torch.device("cpu")]
+    bn = tgluon.nn.BatchNorm(in_channels=2, device="cpu")
+    bn.initialize()
+    with pytest.raises(RuntimeError, match="grad_req='null'"):
+        bn.collect_params()[bn.prefix + "running_mean"].list_grad()
+
+
+def _constant_block(package, name):
+    value = np.arange(6, dtype=np.float32).reshape(2, 3)
+
+    class WithConstant(package.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.c = self.params.get_constant(name, value)
+                self.dense = package.gluon.nn.Dense(3, in_units=3)
+
+        def hybrid_forward(self, F, x, c):
+            return self.dense(x) + c
+
+    scope = tmx.cpu() if package is tmx else contextlib.nullcontext()
+    with package.name.NameManager(), scope:
+        return WithConstant(prefix="b_"), value
+
+
+def test_constant_is_set_kept_and_traced_as_jax():
+    out = {}
+    for package in (mx, tmx):
+        block, value = _constant_block(package, "const_weight")
+        package.random.seed(1)
+        block.initialize()
+        const = block.collect_params()["b_const_weight"]
+        assert const.grad_req == "null"
+        assert const is block.params.get_constant("const_weight")
+        trainer = package.gluon.Trainer(block.collect_params(), "sgd",
+                                        {"learning_rate": 1.0})
+        x = package.nd.array(_x(2, 3), ctx=package.cpu())
+        with package.autograd.record():
+            y = block(x)
+            loss = (y * y).sum()
+        loss.backward()
+        trainer.step(1)
+        np.testing.assert_array_equal(const.data().asnumpy(), value)
+        out[package] = (y.asnumpy(), block(package.sym.var("data")).tojson())
+    np.testing.assert_allclose(out[tmx][0], out[mx][0], **TOL)
+    assert out[tmx][1] == out[mx][1]
+
+
+def test_constant_named_without_a_weight_suffix_initializes():
+    """A deliberate divergence: the JAX Constant's initializer keeps the
+    base class's _init_default, which raises for a name that is not a
+    weight; the port's copies the value, as MXNet's Constant does."""
+    block, value = _constant_block(mx, "const")
+    with pytest.raises(NotImplementedError):
+        block.initialize()
+    block, value = _constant_block(tmx, "const")
+    block.initialize()
+    np.testing.assert_array_equal(
+        block.collect_params()["b_const"].data().asnumpy(), value)

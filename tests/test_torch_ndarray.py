@@ -361,9 +361,46 @@ def _layer_op_cases():
     ]
 
 
+def _optimizer_conv_cases():
+    """The update ops of the twelve optimizers and ``Deconvolution`` (their
+    own draws, so the tables above keep their inputs)."""
+    rng = np.random.RandomState(11)
+
+    def f(*shape, low=-2.0, high=2.0):
+        return rng.uniform(low, high, shape).astype(np.float32)
+
+    w, g, s = f(3, 4), f(3, 4), f(3, 4)
+    pos, pos2 = f(3, 4, low=0.1, high=1.0), f(3, 4, low=0.1, high=1.0)
+    common = {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5,
+              "clip_gradient": 0.3}
+    return [
+        Case("rmsprop_update", [w, g, pos],
+             dict(common, gamma1=0.9, clip_weights=0.5), grad=[]),
+        Case("rmspropalex_update", [w, g, pos + 1.0, 0.1 * s, s],
+             dict(common, gamma1=0.9, gamma2=0.8), grad=[]),
+        Case("ftrl_update", [w, g, s, pos], dict(common, lamda1=0.3),
+             grad=[]),
+        Case("signsgd_update", [w, g], common, grad=[]),
+        Case("signum_update", [w, g, s],
+             dict(common, momentum=0.9, wd_lh=0.02), grad=[]),
+        Case("ftml_update", [w, g, pos, pos2, s], dict(common, t=3),
+             grad=[]),
+        Case("_contrib_group_adagrad_update", [w, g, pos[:, :1]], common,
+             grad=[]),
+        Case("_sparse_adagrad_update", [w, g, pos], common, grad=[]),
+        Case("Deconvolution", [f(2, 3, 5, 6), f(3, 4, 3, 3), f(4)],
+             {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+              "adj": (1, 1), "num_filter": 4, "no_bias": False}, tol=NN),
+        Case("Deconvolution", [f(2, 4, 5), f(4, 3, 3)],
+             {"kernel": (3,), "dilate": (2,), "num_group": 2,
+              "num_filter": 6}, tol=NN),
+    ]
+
+
 TABLES = {"elementwise": _elementwise_cases(), "tensor": _tensor_cases(),
           "reduce": _reduce_cases(), "nn": _nn_cases(),
-          "optimizer": _optimizer_cases(), "layer_ops": _layer_op_cases()}
+          "optimizer": _optimizer_cases(), "layer_ops": _layer_op_cases(),
+          "optimizer_conv": _optimizer_conv_cases()}
 
 
 def _outputs(result, case):
