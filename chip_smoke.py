@@ -68,7 +68,17 @@ and a depth-2 copy against the CPU with bit-equal masks
 (``word_lm_vs_cpu``); VGG-16 through ``image_classification.main``
 (``vgg16_fit``, ``vgg16_profile``); ``benchmark_score`` for AlexNet,
 VGG-16, Inception v3 and ResNet-50 v1 at batch 32 (``zoo_score``); and
-ten zoo families on the card against the CPU (``zoo_vs_cpu``).
+ten zoo families on the card against the CPU (``zoo_vs_cpu``).  Then
+the optimizers, their state files and crash resume (``optim_resume_*``).
+Last, int8 inference: bench.py's int8 ResNet-50 at full width (export,
+``load_checkpoint``, ``quantize_model`` with minmax calibration on one
+batch of 32, ``simple_bind``, forward) against the same fp32 graph, with
+its images/s, device time by kind and peak memory (``int8_resnet50``);
+the eight quantized ops card = CPU bit for bit (``quantized_ops_vs_cpu``);
+a small quantized ResNet-18 on the card and the CPU (``int8_vs_cpu``);
+and ``models/quantize_infer.py`` (``quantize_infer``).  Its int8 products
+are cuBLASLt's int8 GEMM (``torch._int_mm``), as the JAX package's are
+XLA int8 dots: no hand kernel, and flash_attention launches 0 times there.
 
     python3 chip_smoke.py
 
@@ -1731,6 +1741,225 @@ def nd_cases():
          {"shape": (4,), "get_prob": True}, [], elem),
         ("_shuffle", [f(Bt * T, 4)], {}, [], exact),
     ]
+    return cases + nd_cases_int8_slice(f, rng)
+
+
+# outputs unique up to each row's sign: LAPACK (the CPU) and cuSOLVER (the
+# card) may choose either; nd_ops compares them with each row's largest
+# entry made positive (gelqf's L columns follow its Q rows)
+SIGNED_ROWS = ("_linalg_syevd", "_linalg_gelqf")
+
+
+def unsigned_rows(name, outs):
+    """``outs`` of ``name`` with the sign of each eigenvector / Q row (and
+    L column) fixed by its largest entry."""
+    if name not in SIGNED_ROWS:
+        return outs
+    rows = outs[0] if name == "_linalg_syevd" else outs[1]
+    pick = np.take_along_axis(rows, np.abs(rows).argmax(-1)[..., None], -1)
+    sign = np.where(pick < 0, -1.0, 1.0).astype(rows.dtype)
+    if name == "_linalg_syevd":
+        return [outs[0] * sign, outs[1]]
+    return [outs[0] * np.swapaxes(sign, -1, -2), outs[1] * sign]
+
+
+def nd_cases_int8_slice(f, rng):
+    """The registry names of the int8 slice (elementwise, reductions,
+    shape and index ops, orderings, linalg, nn, the image and small contrib
+    ops, the quantized ops) at the same shapes: the LM's activations, the
+    ResNet-50 stage-1 bottleneck and its head, batches of 64 x 64 matrices
+    for linalg.  Tolerances as nd_cases'."""
+    B, S, C, C4 = ND_RES
+    Bt, T = ND_LM_B, ND_LM_T
+    D = DIM // HEADS
+    elem = (FP32_BOUND, 1e-6)
+    gemm = (SERVE_RTOL, SERVE_ATOL)
+    exact = (0.0, 0.0)
+    act = f(Bt, T, DIM)
+    pos = f(Bt, T, DIM, low=0.3, high=2.0)
+    unit = f(Bt, T, DIM, low=-0.9, high=0.9)
+    away = (rng.uniform(0.3, 2.0, act.shape)
+            * rng.choice([-1, 1], act.shape)).astype(np.float32)
+    special = act.copy()
+    special[0, :8, 0] = [np.nan, np.inf, -np.inf, np.nan, 0, 1, np.inf, -2]
+    img, wide = f(B, C, S, S), f(B, C4, S, S)
+    heads = f(Bt, HEADS, T, D)
+    cases = [(n, [act], {}, [0], elem) for n in (
+        "sin", "cos", "arctan", "sinh", "cosh", "arcsinh", "degrees",
+        "radians", "erf", "expm1", "softsign", "rint", "fix", "trunc",
+        "hard_sigmoid", "smooth_l1", "IdentityAttachKLSparseReg",
+        "_contrib_quadratic")]
+    cases += [("tan", [f(Bt, T, DIM, low=-1.2, high=1.2)], {}, [0], elem),
+              ("arccosh", [f(Bt, T, DIM, low=1.2, high=3.0)], {}, [0], elem)]
+    cases += [(n, [unit], {}, [0], elem)
+              for n in ("arcsin", "arccos", "arctanh", "erfinv")]
+    cases += [(n, [pos], {}, [0], elem)
+              for n in ("log10", "log2", "log1p", "rsqrt", "reciprocal")]
+    cases += [(n, [away], {}, [0], elem) for n in ("cbrt", "rcbrt")]
+    cases += [(n, [f(Bt, T, DIM, low=0.2, high=5.0)], {}, [0], elem)
+              for n in ("gamma", "gammaln")]
+    cases += [(n, [special], {}, [], exact) for n in ("isnan", "isinf")]
+    cases += [("logical_not", [np.round(act)], {}, [0], elem),
+              ("add_n", [act, pos, unit], {}, [0, 1, 2], elem),
+              ("_square_sum", [act], {"axis": -1}, [0], gemm),
+              ("norm", [act], {"axis": -1}, [0], gemm),
+              ("argmin", [act], {"axis": -1}, [], elem),
+              ("argmax_channel", [wide], {}, [], elem)]
+    # shape, index and ordering ops on the LM's activations
+    perm = rng.permutation(Bt * T)
+    points = np.stack([perm // T, perm % T]).astype(np.float32)
+    n_rows = min(100, T)
+    rows = np.stack([rng.randint(0, Bt, n_rows),
+                     rng.permutation(T)[:n_rows]]).astype(np.float32)
+    table = f(1000, DIM)
+    ids = rng.randint(-10, 1010, (Bt, T)).astype(np.float32)
+    cases += [
+        ("SwapAxis", [heads], {"dim1": 1, "dim2": 2}, [0], elem),
+        ("squeeze", [f(B, 2048, 1, 1)], {"axis": (2, 3)}, [0], elem),
+        ("shape_array", [act], {}, [], exact),
+        ("size_array", [act], {}, [], exact),
+        ("broadcast_to", [f(1, 1, DIM)], {"shape": (Bt, T, DIM)}, [0],
+         gemm),
+        ("broadcast_like", [f(1, 1, DIM), act], {}, [0], gemm),
+        ("broadcast_axis", [f(Bt, 1, DIM)], {"axis": 1, "size": T}, [0],
+         gemm),
+        ("slice", [act], {"begin": (None, 200, 0), "end": (None, 10, DIM),
+                          "step": (1, -2, 3)}, [0], elem),
+        ("slice_axis", [act], {"axis": 1, "begin": 5, "end": 100}, [0],
+         elem),
+        ("reverse", [act], {"axis": 1}, [0], elem),
+        ("repeat", [f(Bt, T, 64)], {"repeats": 2, "axis": 1}, [0], elem),
+        ("tile", [f(Bt, 1, DIM)], {"reps": (1, 4, 1)}, [0], gemm),
+        ("diag", [f(DIM, DIM)], {"k": 1}, [0], elem),
+        ("take", [table, ids], {"mode": "clip"}, [0], gemm),
+        ("take", [table, ids], {"mode": "wrap"}, [0], gemm),
+        ("batch_take", [f(Bt * T, 1000), ids.reshape(-1)], {}, [0], elem),
+        ("gather_nd", [act, points], {}, [0], elem),
+        ("scatter_nd", [f(Bt * T, DIM), points], {"shape": (Bt, T, DIM)},
+         [0], elem),
+        ("_scatter_set_nd", [act, rows, f(n_rows, DIM)], {}, [0, 2],
+         elem),
+        ("sort", [act], {"axis": -1, "is_ascend": False}, [0], elem),
+        ("argsort", [act], {"axis": -1}, [], elem),
+        ("topk", [act], {"k": 5, "ret_typ": "both"}, [0], elem),
+        ("khatri_rao", [f(64, 32), f(32, 32)], {}, [0, 1], elem),
+        ("_full", [], {"shape": (Bt, T, DIM), "value": 0.5}, [], elem),
+        ("_eye", [], {"N": DIM, "k": 1}, [], elem),
+        ("space_to_depth", [img], {"block_size": 2}, [0], elem),
+        ("depth_to_space", [wide], {"block_size": 2}, [0], elem),
+        ("ravel_multi_index", [rng.randint(0, S, (2, 1000)).astype(
+            np.float32)], {"shape": (S, S)}, [], exact),
+        ("unravel_index", [rng.randint(0, S * S, 1000).astype(np.float32)],
+         {"shape": (S, S)}, [], exact),
+    ]
+    # linalg on a batch of 16 matrices of 64 x 64
+    n = 64
+    a = rng.uniform(-1, 1, (16, n, n)).astype(np.float32)
+    spd = (a @ np.swapaxes(a, -1, -2) / n + np.eye(n)).astype(np.float32)
+    # eigenvalues 1 apart, so that each eigenvector is well conditioned
+    basis = np.linalg.qr(rng.normal(0, 1, (16, n, n)))[0]
+    spread = (basis * np.arange(1, n + 1)) @ np.swapaxes(basis, -1, -2)
+    spread = ((spread + np.swapaxes(spread, -1, -2)) / 2).astype(np.float32)
+    low = np.tril(f(16, n, n, low=-0.1, high=0.1)) + np.eye(
+        n, dtype=np.float32)
+    near = (np.eye(8) + 0.1 * rng.uniform(-1, 1, (16, 8, 8))).astype(
+        np.float32)
+    lin = (1e-4, 1e-4)   # tests/test_registry_ops_r6.py
+    cases += [
+        ("_linalg_gemm", [a, a, a], {"transpose_b": True, "alpha": 0.5},
+         [0, 1, 2], gemm),
+        ("_linalg_gemm2", [a, a], {"transpose_a": True}, [0, 1], gemm),
+        ("_linalg_potrf", [spd], {}, [0], lin),
+        ("_linalg_potri", [low], {}, [0], lin),
+        ("_linalg_trsm", [low, a], {"rightside": True}, [0, 1], lin),
+        ("_linalg_trmm", [low, a], {"transpose": True}, [0, 1], gemm),
+        ("_linalg_syrk", [a], {"alpha": 2.0}, [0], gemm),
+        ("_linalg_gelqf", [a[:, :32]], {}, [], lin),
+        ("_linalg_syevd", [spread], {}, [], lin),
+        ("_linalg_sumlogdiag", [spd], {}, [0], lin),
+        ("_linalg_extractdiag", [a], {}, [0], elem),
+        ("_linalg_makediag", [a[:, 0]], {}, [0], elem),
+        ("_linalg_extracttrian", [a], {"offset": -1}, [0], elem),
+        ("_linalg_inverse", [near], {}, [0], lin),
+        ("_linalg_det", [near], {}, [0], lin),
+        ("_linalg_slogdet", [near], {}, [0], lin),
+    ]
+    # nn, image and contrib ops at the ResNet and LM shapes
+    img, wide = img[:8], wide[:8]   # the stage's shapes at 8 images
+    t_first = np.ascontiguousarray(act.transpose(1, 0, 2))
+    lens = np.array([T, T // 3], np.float32)
+    labels = rng.randint(0, 1000, B).astype(np.float32)
+    qkv = f(T, Bt, 3 * DIM)
+    att = rng.uniform(0, 1, (Bt * HEADS, T, T)).astype(np.float32)
+    cases += [
+        ("UpSampling", [img], {"scale": 2, "sample_type": "nearest"}, [0],
+         elem),
+        ("UpSampling", [img, f(C, 1, 4, 4)], {"scale": 2, "num_filter": C,
+                                              "sample_type": "bilinear"},
+         [0, 1], gemm),
+        ("L2Normalization", [img], {}, [0], gemm),
+        ("LRN", [img], {"nsize": 5}, [0], gemm),
+        ("softmin", [act], {}, [0], gemm),
+        ("SoftmaxActivation", [img], {"mode": "channel"}, [0], gemm),
+        ("LinearRegressionOutput", [f(B, 1000), f(B, 1000)], {}, [0], elem),
+        ("MAERegressionOutput", [f(B, 1000), f(B, 1000)], {}, [0], elem),
+        ("LogisticRegressionOutput", [f(B, 1000), f(B, 1000, low=0,
+                                                    high=1)], {}, [0], elem),
+        ("SequenceMask", [act, lens], {"use_sequence_length": True,
+                                       "axis": 1}, [0], elem),
+        ("SequenceLast", [act, lens], {"use_sequence_length": True,
+                                       "axis": 1}, [0], elem),
+        ("SequenceReverse", [t_first, lens],
+         {"use_sequence_length": True}, [0], elem),
+        ("MakeLoss", [act], {"normalization": "batch"}, [0], elem),
+        ("SVMOutput", [f(B, 1000), labels], {}, [0], gemm),
+        ("Crop", [img], {"h_w": (28, 28), "center_crop": True}, [0], elem),
+        ("_histogram", [act], {"bin_cnt": 100, "range": (-2.0, 2.0)}, [],
+         exact),
+        ("_image_to_tensor", [rng.randint(0, 256, (B, 224, 224, 3)).astype(
+            np.uint8)], {}, [], elem),
+        ("_image_normalize", [f(B, 3, 224, 224)],
+         {"mean": (0.485, 0.456, 0.406), "std": (0.229, 0.224, 0.225)},
+         [0], elem),
+        ("_contrib_index_copy", [table, rng.permutation(1000)[:100].astype(
+            np.float32), f(100, DIM)], {}, [0, 2], elem),
+        ("_contrib_AdaptiveAvgPooling2D", [wide], {"output_size": 7}, [0],
+         gemm),
+        ("_contrib_BilinearResize2D", [img], {"height": 112, "width": 112},
+         [0], gemm),
+        ("_contrib_count_sketch", [f(B, 2048), rng.randint(
+            0, 1000, (1, 2048)).astype(np.float32), rng.choice(
+            [-1.0, 1.0], (1, 2048)).astype(np.float32)], {"out_dim": 1000},
+         [0], gemm),
+        ("_contrib_fft", [f(B, 1024)], {}, [0], gemm),
+        ("_contrib_ifft", [f(B, 2048)], {}, [0], gemm),
+        ("_contrib_interleaved_matmul_selfatt_qk", [qkv], {"heads": HEADS},
+         [0], gemm),
+        ("_contrib_interleaved_matmul_selfatt_valatt", [qkv, att],
+         {"heads": HEADS}, [0, 1], gemm),
+        ("_contrib_div_sqrt_dim", [heads], {}, [0], elem),
+    ]
+    # the quantized ops (quantized_ops_vs_cpu holds them at more shapes)
+    rd = [np.array([v], np.float32) for v in (-2.5, 3.0, -0.7, 0.4)]
+    q8 = rng.randint(-127, 128, (B, C, S, S)).astype(np.int8)
+    cases += [
+        ("_contrib_quantize", [img] + rd[:2], {"out_type": "int8"}, [],
+         exact),
+        ("_contrib_quantize_v2", [img], {}, [], exact),
+        ("_contrib_dequantize", [q8] + rd[:2], {}, [], exact),
+        ("_contrib_requantize", [rng.randint(-2 ** 30, 2 ** 30, (B, 1000))
+                                 .astype(np.int32)] + rd[:2], {}, [], exact),
+        ("_contrib_quantized_conv", [q8, rng.randint(-127, 128, (C4, C, 1, 1))
+                                     .astype(np.int8)] + rd,
+         {"kernel": (1, 1), "num_filter": C4, "no_bias": True}, [], exact),
+        ("_contrib_quantized_fully_connected",
+         [rng.randint(-127, 128, (B, 2048)).astype(np.int8),
+          rng.randint(-127, 128, (1000, 2048)).astype(np.int8)] + rd,
+         {"num_hidden": 1000, "no_bias": True}, [], exact),
+        ("_contrib_quantized_flatten", [q8] + rd[:2], {}, [], exact),
+        ("_contrib_quantized_pooling", [q8] + rd[:2],
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)}, [], exact),
+    ]
     return cases
 
 
@@ -1781,7 +2010,8 @@ def nd_ops(dev):
         seen.add(get_op(name))
         want = nd_run(name, inputs, dict(attrs), grads, "cpu", seed)
         got = nd_run(name, inputs, dict(attrs), grads, dev, seed)
-        for k, (g, w) in enumerate(zip(got[0], want[0])):
+        for k, (g, w) in enumerate(zip(unsigned_rows(name, got[0]),
+                                       unsigned_rows(name, want[0]))):
             if g.shape != w.shape:
                 fail("nd_ops %s output %d: shape %s on the card, %s on the "
                      "CPU" % (name, k, g.shape, w.shape))
@@ -2375,7 +2605,10 @@ def device_profile(fn):
             torch.cuda.synchronize()
             prof.step()
     cpu = torch.autograd.DeviceType.CPU
-    kernels = [e for e in traces[0] if e.device_type != cpu]
+    # the step's own annotation has a device-side twin spanning its
+    # kernels: it is not a kernel, and its time would count them twice
+    kernels = [e for e in traces[0] if e.device_type != cpu
+               and not e.key.startswith("ProfilerStep")]
     return (sum(e.self_device_time_total for e in kernels) / 1e3,
             {e.key: e.count for e in kernels})
 
@@ -5352,6 +5585,474 @@ def optim_resume_phases(cuda_ops, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# int8 inference (ops/quantization_ops.py, contrib/quantization.py)
+# ---------------------------------------------------------------------------
+
+INT8_B, INT8_SIDE = 32, 224   # bench.py _measure_int8: B = 32, 224 x 224
+INT8_AGREE, INT8_GAP = 0.9, 0.35   # tests/test_quantize_graph.py:179-183
+# bench.py's batch through the random-weight 1000-class ResNet-50 has fp32
+# top-1 margins (median 0.0014) below the int8 path's logit error (about
+# 0.003): there the JAX package's int8 arithmetic, run by the port on the
+# CPU of an H100 80GB HBM3's host, agrees with fp32 on 27 of 32 images,
+# under INT8_AGREE.  The card's agreement is held to that reference's on the same
+# batch, one image of slack for the ulp-level threshold differences
+INT8_AGREE_SLACK = 1
+# dense int8 tensor-core peaks (NVIDIA data sheets), op/s
+INT8_PEAKS = {"H100 PCIe": 1513e12, "H100 NVL": 1671e12, "H100": 1979e12}
+INT8_REPS = 5
+
+
+def is_int8_gemm(kernel):
+    """An int8 GEMM by its kernel's name: cuBLASLt's sm90 xmma i8 GEMMs,
+    CUTLASS's s8 tensor-op GEMMs, the imma ones."""
+    k = kernel.lower()
+    return "gemm" in k and any(t in k for t in ("i8i32", "_s8", "s8_",
+                                                 "imma", "i16832", "i8816"))
+INT8_VS_CPU = (16, 32, 10)   # tests/test_quantize_graph.py's resnet18_v1
+
+
+def int8_peak(name):
+    for key, peak in INT8_PEAKS.items():
+        if key in name:
+            return peak
+    fail("no published int8 peak for card %r" % name)
+
+
+def int8_gemm_ops(qsym, shapes):
+    """2 M K N summed over the graph's quantized FC and convolution nodes
+    (M the output positions, K the reduction, N the outputs), from the
+    shapes shape inference gives each node."""
+    from mxnet_tpu_torch.symbol import Group
+
+    nodes = [n for n in qsym._topo_nodes()
+             if n.op in ("_contrib_quantized_conv",
+                         "_contrib_quantized_fully_connected")]
+    probe = Group([type(qsym)([(n, 0)]) for n in nodes])
+    in_shapes, outs, _ = probe.infer_shape(**shapes)
+    arg_shapes = dict(zip(probe.list_arguments(), in_shapes))
+    total = 0
+    for n, out in zip(nodes, outs):
+        w = arg_shapes[n.inputs[1][0].name]   # (N, K...) filters or rows
+        m = int(np.prod(out)) // w[0]          # output positions
+        total += 2 * m * int(np.prod(w[1:])) * w[0]
+    return total, len(nodes)
+
+
+def int8_profile(qsym, exe, x):
+    """Device ms of one eager forward of the quantized graph by kind: each
+    node's op under a ``record_function`` range, the im2cols and the int8
+    conversions under ranges of their own, and the int8 GEMMs and the
+    min/max reductions by kernel name."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mxnet_tpu_torch.executor import graph_function
+    from mxnet_tpu_torch.ops import quantization_ops as qo
+
+    fn = graph_function(qsym, exe.arg_names, exe.aux_names, False, x.device)
+    args = [exe.arg_dict[n]._data for n in exe.arg_names]
+    aux = [exe.aux_dict[n]._data for n in exe.aux_names]
+    args[exe.arg_names.index("data")] = x
+    ops = {}
+    for n in qsym._topo_nodes():
+        if n.op is not None and n.op not in ops:
+            from mxnet_tpu_torch.ops.registry import get_op
+            ops[n.op] = get_op(n.op)
+    saved = {name: (op, op.fcompute) for name, op in ops.items()}
+    patched = {k: getattr(qo, k) for k in ("im2col", "cast")}
+
+    def ranged(label, f):
+        def call(*a, **kw):
+            with record_function(label):
+                return f(*a, **kw)
+        return call
+
+    try:
+        for name, (op, f) in saved.items():
+            op.fcompute = ranged("op:" + name, f)
+        for k, f in patched.items():
+            setattr(qo, k, ranged("fn:" + k, f))
+        with torch.no_grad():
+            fn(args, aux)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn(args, aux)
+                torch.cuda.synchronize()
+    finally:
+        for name, (op, f) in saved.items():
+            op.fcompute = f
+        for k, f in patched.items():
+            setattr(qo, k, f)
+    by_range, reduce_ms, gemm_ms, total = {}, 0.0, 0.0, 0.0
+    cpu = torch.autograd.DeviceType.CPU
+    # a range's kernels, from the host-side events (a range's device-side
+    # twin spans its first to its last kernel, gaps included)
+    for e in prof.events():
+        if e.device_type == cpu and e.name.startswith(("op:", "fn:")):
+            by_range[e.name] = by_range.get(e.name, 0.0) \
+                + e.device_time_total / 1e3
+    for e in prof.key_averages():
+        if e.key.startswith(("op:", "fn:", "ProfilerStep")):
+            continue
+        if e.device_type != cpu:
+            ms = e.self_device_time_total / 1e3
+            total += ms
+            if "reduce_kernel" in e.key:
+                reduce_ms += ms
+            if is_int8_gemm(e.key):
+                gemm_ms += ms
+    return total, by_range, reduce_ms, gemm_ms
+
+
+def int8_resnet50(cuda_ops, dev, card, workdir):
+    """Phase: bench.py's int8 path at full width.  resnet50_v1 (1000
+    classes, Xavier from mx.random.seed(0)) exported, read back by
+    ``model.load_checkpoint``, rewritten by ``quantize_model`` with minmax
+    calibration on one seeded batch of 32 x 3 x 224 x 224, bound by
+    ``simple_bind(grad_req='null')`` and run forward on the card; the same
+    exported fp32 graph through ``simple_bind`` beside it.  Holds the int8
+    logits to the JAX package's int8 bounds against the fp32 forward
+    (top-1 agreement >= 0.9, largest gap below 0.35 of the largest fp32
+    logit; the top-1 agreement no lower than the JAX package's int8
+    arithmetic reaches on the same batch, run by the port on the host's
+    CPU: see INT8_AGREE_SLACK) and prints images/s over CUDA-event
+    windows, calibration seconds, peak memory, the device time by kind,
+    the int8 GEMMs' launches and their bound at the card's dense int8
+    peak."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.ops import quantization_ops as qo
+
+    net = new_resnet(dev, 0)
+    prefix = str(workdir / "r50")
+    net.export(prefix)
+    del net
+    torch.cuda.empty_cache()
+    sym, arg_params, aux_params = mx.model.load_checkpoint(prefix, 0,
+                                                           ctx=dev)
+    rng = np.random.RandomState(0)
+    shape = (INT8_B, 3, INT8_SIDE, INT8_SIDE)
+    x_np = rng.uniform(-1, 1, shape).astype(np.float32)
+    calib_np = rng.uniform(-1, 1, shape).astype(np.float32)
+    calib = mx.io.NDArrayIter(calib_np, np.zeros(INT8_B, np.float32), INT8_B,
+                              ctx=dev)
+    qo.int8_gemm.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with dev:
+        qsym, qargs, qaux = q.quantize_model(sym, arg_params, aux_params,
+                                             calib_data=calib,
+                                             calib_mode="minmax")
+    torch.cuda.synchronize()
+    calib_s = time.time() - t0
+    calib_gemms = qo.int8_gemm.launches
+    exe = qsym.simple_bind(dev, data=shape, grad_req="null")
+    exe.copy_params_from(qargs, qaux)
+    x = mx.nd.array(x_np, ctx=dev)
+    qo.int8_gemm.launches = 0
+    got = exe.forward(is_train=False, data=x)[0].asnumpy()
+    eager_gemms = qo.int8_gemm.launches
+    int8_ms = time_ms(lambda: exe.forward(is_train=False, data=x),
+                      reps=INT8_REPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ops, n_nodes = int8_gemm_ops(qsym, {"data": shape})
+    # CUPTI can drop a kernel at the edge of a trace (replayed_launches):
+    # a count short of the nodes is traced again, three traces in all
+    for _ in range(3):
+        replay_ms, kernels = device_profile(
+            lambda: exe.forward(is_train=False, data=x))
+        gemms_a_forward = sum(n for k, n in kernels.items()
+                              if is_int8_gemm(k))
+        if gemms_a_forward == n_nodes:
+            break
+    if gemms_a_forward != n_nodes:
+        fail("int8_resnet50: %d int8 GEMM kernels in a replayed forward "
+             "for %d quantized nodes (GEMM-like kernels: %s)"
+             % (gemms_a_forward, n_nodes, {k[:90]: n for k, n in
+                                           kernels.items()
+                                           if "gemm" in k.lower()}))
+    total_ms, by_range, reduce_ms, gemm_ms = int8_profile(qsym, exe, x._data)
+    # the wrapper counts the eager runs (the capture's warm-ups and the
+    # profile's); a replay launches the graph's GEMMs without calling it
+    replays = exe._cops[False].capture_stats()["replays"]
+    launches = qo.int8_gemm.launches + replays * gemms_a_forward
+    fp_exe = sym.simple_bind(dev, data=shape, grad_req="null")
+    fp_exe.copy_params_from(arg_params, aux_params)
+    want = fp_exe.forward(is_train=False, data=x)[0].asnumpy()
+    fp32_ms = time_ms(lambda: fp_exe.forward(is_train=False, data=x),
+                      reps=INT8_REPS)
+    if cuda_ops.flash_attention.launches:
+        fail("int8_resnet50 launched flash_attention")
+    if not (np.isfinite(got).all() and got.shape == (INT8_B, 1000)):
+        fail("int8_resnet50: logits not finite or of shape %s" % (
+            got.shape,))
+    t0 = time.time()
+    ref_fp32, ref_int8, ref_th, _ = int8_run(
+        "cpu", prefix, x_np, calib_np, codes=False)
+    ref_s = time.time() - t0
+    agree = float((got.argmax(1) == want.argmax(1)).mean())
+    ref_agree = float((ref_int8.argmax(1) == ref_fp32.argmax(1)).mean())
+    gap = float(np.abs(got - want).max() / (np.abs(want).max() + 1e-6))
+    srt = np.sort(want, 1)
+    margins = srt[:, -1] - srt[:, -2]
+    row_err = np.abs(got - want).max(1)
+    if gap >= INT8_GAP:
+        fail("int8_resnet50: logit gap %.3f of the largest fp32 logit "
+             "(bound %.2f)" % (gap, INT8_GAP))
+    if agree < min(INT8_AGREE, ref_agree - INT8_AGREE_SLACK / INT8_B):
+        fail("int8_resnet50: top-1 agreement %.4f, below %.2f and below "
+             "the reference arithmetic's %.4f on the same batch"
+             % (agree, INT8_AGREE, ref_agree))
+    if not eager_gemms:
+        fail("int8_resnet50: the int8 GEMM wrapper launched nothing")
+    bound_ms = ops / int8_peak(card) * 1e3
+    del exe, fp_exe
+    torch.cuda.empty_cache()
+    phase("int8_resnet50", network="resnet50_v1", batch=shape,
+          calib="minmax", calib_s=round(calib_s, 3),
+          quantized_nodes=n_nodes, int8_ms=int8_ms,
+          int8_images_per_s=INT8_B / (int8_ms / 1e3),
+          fp32_ms=fp32_ms, fp32_images_per_s=INT8_B / (fp32_ms / 1e3),
+          top1_agreement=agree, logit_gap=gap,
+          cpu_reference_top1_agreement=ref_agree,
+          cpu_reference_logit_gap=float(np.abs(ref_int8 - ref_fp32).max()
+                                        / (np.abs(ref_fp32).max() + 1e-6)),
+          card_vs_cpu_int8_max_abs=float(np.abs(got - ref_int8).max()),
+          threshold_max_rel_gap=max(
+              abs(th - ref_th[k][i]) / max(abs(ref_th[k][i]), 1e-30)
+              for k, pair in calibrated_ranges(qsym).items()
+              for i, th in enumerate(pair)),
+          fp32_median_top1_margin=float(np.median(margins)),
+          rows_margin_below_int8_err=int((margins < row_err).sum()),
+          cpu_reference_s=round(ref_s, 2),
+          peak_memory_gb=round(peak_gb, 3),
+          int8_gemm_launches=launches, int8_gemm_launches_eager=eager_gemms,
+          replays=replays, calib_int8_gemms=calib_gemms,
+          int8_gemms_a_forward=gemms_a_forward,
+          int8_gemm_ops=ops, int8_bound_ms=bound_ms,
+          replay_device_ms=replay_ms,
+          eager_device_ms=total_ms, eager_int8_gemm_ms=gemm_ms,
+          eager_minmax_reduce_ms=reduce_ms,
+          eager_ms_by_range=json.dumps(
+              {k: round(v, 4) for k, v in sorted(
+                  by_range.items(), key=lambda kv: -kv[1])}),
+          flash_attention_launches=0, card='"%s"' % card)
+
+
+def calibrated_ranges(qsym):
+    """{quantize_v2 node: (min_calib_range, max_calib_range)}."""
+    return {n.name: (n.attrs["min_calib_range"], n.attrs["max_calib_range"])
+            for n in qsym._topo_nodes() if n.op == "_contrib_quantize_v2"}
+
+
+def quantized_ops_vs_cpu(dev):
+    """Phase: each of the eight quantized ops on ResNet-50 stage shapes,
+    the card against the port's CPU path on the same inputs: bit-equal."""
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(8)
+
+    def i8(*shape):
+        return rng.randint(-127, 128, shape).astype(np.int8)
+
+    def rr(*v):
+        return [np.array([a], np.float32) for a in v]
+
+    act = rng.normal(0, 1.5, (8, 64, 56, 56)).astype(np.float32)
+    x56, img = i8(8, 64, 56, 56), i8(4, 3, 224, 224)
+    rd, rw, rb = rr(-2.5, 3.0), rr(-0.7, 0.4), rr(-0.05, 0.06)
+    calls = [
+        ("_contrib_quantize", [act] + rd, {"out_type": "int8"}),
+        ("_contrib_quantize", [act] + rd, {"out_type": "uint8"}),
+        ("_contrib_quantize_v2", [act], {}),
+        ("_contrib_quantize_v2", [act], {"min_calib_range": -2.0,
+                                         "max_calib_range": 2.5}),
+        ("_contrib_dequantize", [x56] + rd, {}),
+        ("_contrib_dequantize", [x56.astype(np.uint8)] + rd, {}),
+        ("_contrib_requantize", [rng.randint(-2 ** 30, 2 ** 30, (32, 2048))
+                                 .astype(np.int32)] + rd, {}),
+        ("_contrib_quantized_conv", [img, i8(64, 3, 7, 7)] + rd + rw,
+         {"kernel": (7, 7), "stride": (2, 2), "pad": (3, 3),
+          "num_filter": 64, "no_bias": True}),
+        ("_contrib_quantized_conv", [x56, i8(64, 64, 3, 3)] + rd + rw,
+         {"kernel": (3, 3), "pad": (1, 1), "num_filter": 64,
+          "no_bias": True}),
+        ("_contrib_quantized_conv", [x56, i8(256, 64, 1, 1), i8(256)]
+         + rd + rw + rb, {"kernel": (1, 1), "num_filter": 256}),
+        ("_contrib_quantized_conv", [x56, i8(128, 64, 1, 1)] + rd + rw,
+         {"kernel": (1, 1), "stride": (2, 2), "num_filter": 128,
+          "no_bias": True}),
+        ("_contrib_quantized_fully_connected",
+         [i8(32, 2048, 1, 1), i8(1000, 2048), i8(1000)] + rd + rw + rb,
+         {"num_hidden": 1000}),
+        ("_contrib_quantized_fully_connected",
+         [i8(32, 2048), i8(1000, 2048)] + rd + rw, {"num_hidden": 1000,
+                                                    "no_bias": True}),
+        ("_contrib_quantized_flatten", [x56] + rd, {}),
+        ("_contrib_quantized_pooling", [x56] + rd,
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)}),
+        ("_contrib_quantized_pooling", [x56] + rd,
+         {"global_pool": True, "kernel": (1, 1), "pool_type": "avg"}),
+    ]
+    t0 = time.time()
+    names = set()
+    for name, inputs, attrs in calls:
+        outs = {}
+        for where in ("cpu", dev):
+            out = getattr(mx.nd, name)(*[mx.nd.array(a, ctx=where,
+                                                     dtype=a.dtype)
+                                         for a in inputs], **attrs)
+            outs[str(where)] = [o.asnumpy() for o in (
+                out if isinstance(out, list) else [out])]
+        for k, (g, w) in enumerate(zip(outs[str(dev)], outs["cpu"])):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                fail("quantized_ops_vs_cpu %s %s output %d: card and CPU "
+                     "differ (max abs %.3g)" % (name, attrs, k, float(
+                         np.abs(g.astype(np.float64) - w).max())))
+        names.add(name)
+    if len(names) != 8:
+        fail("quantized_ops_vs_cpu covers %d of the 8 ops" % len(names))
+    phase("quantized_ops_vs_cpu", ops=len(names), calls=len(calls),
+          bitwise=True, shapes="resnet50 stage1 (8,64,56,56), conv0 "
+          "(4,3,224,224), head (32,2048)->1000",
+          seconds=round(time.time() - t0, 2))
+
+
+def int8_run(where, prefix, x, calib, codes=True):
+    """quantize_model (minmax) of the checkpoint at ``prefix`` on
+    ``where`` and its int8 logits on ``x``, with the fp32 logits, the
+    thresholds by node and (``codes``) the codes at each quantize_v2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.symbol import Group
+
+    with torch.device(where):
+        sym, args, aux = mx.model.load_checkpoint(prefix, 0, ctx=where)
+        fp = sym.simple_bind(where, data=x.shape, grad_req="null")
+        fp.copy_params_from(args, aux)
+        data = mx.nd.array(x, ctx=where)
+        fp32 = fp.forward(is_train=False, data=data)[0].asnumpy()
+        it = mx.io.NDArrayIter(calib, np.zeros(len(calib), np.float32),
+                               len(calib), ctx=where)
+        qsym, qargs, qaux = q.quantize_model(sym, args, aux, calib_data=it,
+                                             calib_mode="minmax")
+        exe = qsym.simple_bind(where, data=x.shape, grad_req="null")
+        exe.copy_params_from(qargs, qaux)
+        int8 = exe.forward(is_train=False, data=data)[0].asnumpy()
+        thresholds = calibrated_ranges(qsym)
+        if not codes:
+            return fp32, int8, thresholds, None
+        nodes = [n for n in qsym._topo_nodes()
+                 if n.op == "_contrib_quantize_v2"]
+        probe = Group([type(qsym)([(n, 0)]) for n in nodes])
+        pexe = probe.simple_bind(where, data=x.shape, grad_req="null")
+        pexe.copy_params_from(qargs, qaux, allow_extra_params=True)
+        codes = [o.asnumpy() for o in pexe.forward(is_train=False,
+                                                   data=data)]
+    return fp32, int8, thresholds, codes
+
+
+def int8_vs_cpu(dev):
+    """Phase: resnet18_v1 at the JAX test's size (10 classes, 16 x 3 x 32
+    x 32), seeded, exported, quantized (minmax) and run on the card and on
+    the CPU.  The thresholds come from fp32 calibration forwards that
+    differ by ulps between the devices: their largest relative gap is
+    measured and printed, with the share of equal codes at each
+    quantize_v2.  Holds both int8 forwards to the JAX test's bounds
+    against the CPU's fp32 forward, and the card's int8 logits closer to
+    the CPU's than the CPU's are to fp32."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    B, side, classes = INT8_VS_CPU
+    t0 = time.time()
+    mx.random.seed(0)
+    net = vision.get_model("resnet18_v1", classes=classes, device="cpu")
+    net.initialize(mx.init.Xavier())
+    with torch.no_grad():
+        net(torch.zeros(1, 3, side, side))
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (B, 3, side, side)).astype(np.float32)
+    calib = rng.uniform(-1, 1, (B, 3, side, side)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "r18")
+        net.export(prefix)
+        fp_c, int8_c, th_c, codes_c = int8_run("cpu", prefix, x, calib)
+        fp_g, int8_g, th_g, codes_g = int8_run(dev, prefix, x, calib)
+    th_gap = max(abs(th_g[k][i] - th_c[k][i]) / max(abs(th_c[k][i]), 1e-30)
+                 for k in th_c for i in (0, 1))
+    shares = [float((a == b).mean()) for a, b in zip(codes_g, codes_c)]
+    scale = np.abs(fp_c).max() + 1e-6
+    for label, out in (("card", int8_g), ("cpu", int8_c)):
+        agree = float((out.argmax(1) == fp_c.argmax(1)).mean())
+        gap = float(np.abs(out - fp_c).max() / scale)
+        if agree < INT8_AGREE or gap >= INT8_GAP:
+            fail("int8_vs_cpu: the %s's int8 forward beyond the JAX test's "
+                 "bounds: agreement %.3f, gap %.3f" % (label, agree, gap))
+    card_cpu = float(np.abs(int8_g - int8_c).max())
+    cpu_fp = float(np.abs(int8_c - fp_c).max())
+    if not card_cpu < cpu_fp:
+        fail("int8_vs_cpu: card vs CPU int8 logits %.3g, not below the "
+             "CPU's int8 vs fp32 gap %.3g" % (card_cpu, cpu_fp))
+    phase("int8_vs_cpu", network="resnet18_v1", batch=(B, 3, side, side),
+          classes=classes, fp32_max_abs=float(np.abs(fp_g - fp_c).max()),
+          threshold_max_rel_gap=th_gap,
+          min_equal_code_share=min(shares),
+          mean_equal_code_share=float(np.mean(shares)),
+          int8_card_vs_cpu_max_abs=card_cpu,
+          int8_cpu_vs_fp32_max_abs=cpu_fp,
+          seconds=round(time.time() - t0, 2))
+
+
+def quantize_infer_phase(cuda_ops, dev):
+    """Phase: ``models/quantize_infer.py`` on the card at the example's
+    bounds (tests/test_examples_gluon.py:110-112)."""
+    from mxnet_tpu_torch.models import quantize_infer
+    from mxnet_tpu_torch.ops import quantization_ops as qo
+
+    t0 = time.time()
+    qo.int8_gemm.launches = 0
+    fp_acc, q_acc, agree = quantize_infer.main(["--device", str(dev)])
+    if not (fp_acc > 0.9 and q_acc > fp_acc - 0.1 and agree > 0.9):
+        fail("quantize_infer: fp32 %.3f int8 %.3f agreement %.3f beyond "
+             "the example's bounds" % (fp_acc, q_acc, agree))
+    if not qo.int8_gemm.launches:
+        fail("quantize_infer launched no int8 GEMM on the card")
+    phase("quantize_infer", fp32_accuracy=fp_acc, int8_accuracy=q_acc,
+          top1_agreement=agree, int8_gemm_launches_eager=qo.int8_gemm.
+          launches, seconds=round(time.time() - t0, 2))
+
+
+def int8_phases(cuda_ops, dev, card):
+    """int8 inference: bench.py's int8 ResNet-50, the quantized ops and a
+    small quantized model against the CPU, and the example.  Returns the
+    kernel's launches there (0: the path has no attention)."""
+    import tempfile
+
+    seconds = {}
+
+    def timed(fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        seconds[fn.__name__] = round(time.time() - t0, 2)
+        return out
+
+    reset_launches(cuda_ops)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed(int8_resnet50, cuda_ops, dev, card, Path(tmp))
+    timed(quantized_ops_vs_cpu, dev)
+    timed(int8_vs_cpu, dev)
+    timed(quantize_infer_phase, cuda_ops, dev)
+    phase("int8_seconds", **seconds)
+    if cuda_ops.flash_attention.launches:
+        fail("the int8 phases launched flash_attention %d times"
+             % cuda_ops.flash_attention.launches)
+    return cuda_ops.flash_attention.launches
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -5431,6 +6132,7 @@ def main():
     launches_fleet = serving_tier_phases(cuda_ops, dev, smi)
     launches_word_lm = random_zoo_phases(cuda_ops, dev, smi)
     launches_optim = optim_resume_phases(cuda_ops, dev, smi)
+    launches_int8 = int8_phases(cuda_ops, dev, smi)
 
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -5438,7 +6140,7 @@ def main():
               "launches": launches_serve + launches_train
               + launches_train_bf16 + launches_nd + launches_functional
               + launches_hybrid + launches_exported + launches_fleet
-              + launches_word_lm + launches_optim,
+              + launches_word_lm + launches_optim + launches_int8,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
               "launches_hybrid_train": launches_hybrid,
@@ -5449,7 +6151,8 @@ def main():
               "launches_exported": launches_exported,
               "launches_fleet": launches_fleet,
               "launches_word_lm": launches_word_lm,
-              "launches_optim": launches_optim}
+              "launches_optim": launches_optim,
+              "launches_int8": launches_int8}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

@@ -1,14 +1,14 @@
 """``mx.nd``, the imperative array package (counterpart of
-``mxnet_tpu/ndarray/__init__.py``): :class:`NDArray`, its creators, and
-one function per registered op, ``random`` (the samplers), and
-``save``/``load`` (``.params`` files)."""
+``mxnet_tpu/ndarray/__init__.py``): :class:`NDArray`, its creators,
+``moveaxis``, one function per registered op, ``random`` (the samplers),
+``linalg``, and ``save``/``load`` (``.params`` files)."""
 import sys as _sys
 
 from .. import ops as _ops  # noqa: F401  (registers the built-in ops)
-from . import random  # noqa: F401
+from . import linalg, random  # noqa: F401
 from . import register as _register
 from .ndarray import (NDArray, arange, array, concat, empty, full, invoke,
-                      ones, stack, waitall, zeros)
+                      moveaxis, ones, stack, waitall, zeros)
 from .utils import load, save
 
 _register.install_ops(_sys.modules[__name__])

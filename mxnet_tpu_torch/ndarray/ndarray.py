@@ -31,6 +31,8 @@ it), wrap the outputs and honour ``out=``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -42,7 +44,7 @@ from ..context import resolve_device
 from ..ops.registry import get_op
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
-           "arange", "concat", "stack", "waitall"]
+           "arange", "moveaxis", "concat", "stack", "waitall", "cast"]
 
 _TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                  "bfloat16": torch.bfloat16, "uint8": torch.uint8,
@@ -70,6 +72,41 @@ def torch_dtype(dtype):
         raise TypeError("dtype %r is not one of %s"
                         % (dtype, sorted(_TORCH_DTYPES)))
     return _TORCH_DTYPES[name]
+
+
+@functools.lru_cache(maxsize=None)
+def _exact_in(value, float_dtype):
+    """Whether ``value`` is a ``float_dtype`` number (on the host: a cast
+    may run inside a CUDA-graph capture)."""
+    return float(torch.tensor(value, dtype=float_dtype,
+                              device="cpu")) == value
+
+
+def cast(x, dtype):
+    """``x`` in the torch dtype ``dtype``, converted as XLA's convert
+    does (the JAX package's ``astype``): a float to an integer type is
+    truncated toward zero and saturates at the type's range, NaN gives 0
+    and an infinity the type's max or min.  torch's own conversion wraps
+    there, and differs between the CPU and the card.  Every other
+    conversion is torch's."""
+    if not x.is_floating_point() or dtype.is_floating_point \
+            or dtype == torch.bool or x.dtype == dtype:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    lo, hi = float(info.min), float(info.max)
+    fmax = torch.finfo(x.dtype).max
+    # an infinity becomes the float type's largest value, clamped below
+    t = torch.nan_to_num(torch.trunc(x), nan=0.0).clamp_(max(lo, -fmax),
+                                                         min(hi, fmax))
+    if hi > fmax:   # fp16 to int32: every finite value fits
+        out = t.to(dtype)
+        return torch.where(torch.isinf(x), torch.where(
+            x > 0, info.max, info.min).to(dtype), out)
+    if _exact_in(hi, x.dtype):
+        return t.to(dtype)
+    # int32's max rounds up to 2^31 in fp32: the top is chosen by a
+    # comparison, not by the clamp
+    return torch.where(t >= hi, info.max, t.to(dtype))
 
 
 def _grad_scope():
@@ -201,7 +238,8 @@ class NDArray:
     def astype(self, dtype, copy=True):
         """A copy in ``dtype`` (not recorded, as in the reference)."""
         with torch.no_grad():
-            return NDArray(self._data.to(torch_dtype(dtype), copy=True))
+            out = cast(self._data, torch_dtype(dtype))
+            return NDArray(out.clone() if out is self._data else out)
 
     def copyto(self, other):
         """Copy into the NDArray ``other`` (its device and dtype), or onto
@@ -209,8 +247,8 @@ class NDArray:
         with torch.no_grad():
             if isinstance(other, NDArray):
                 if other is not self:
-                    other._set_data(self._data.to(
-                        other.context, other._data.dtype, copy=True))
+                    other._set_data(cast(self._data.to(
+                        other.context, copy=True), other._data.dtype))
                 return other
             if isinstance(other, (torch.device, str)):
                 return NDArray(self._data.to(resolve_device(other),
@@ -300,7 +338,7 @@ class NDArray:
             elif isinstance(value, (np.ndarray, list, tuple)):
                 value = tensor_from_numpy(np.asarray(value))
             if isinstance(value, torch.Tensor):
-                value = value.to(cur.device, cur.dtype)
+                value = cast(value.to(cur.device), cur.dtype)
             if isinstance(idx, slice) and idx == slice(None):
                 if isinstance(value, torch.Tensor):
                     new = value.expand(cur.shape).clone()
@@ -442,6 +480,62 @@ class NDArray:
     def argmax(self, axis=None, keepdims=False):
         return invoke("argmax", [self], {"axis": axis, "keepdims": keepdims})
 
+    def argmin(self, axis=None, keepdims=False):
+        return invoke("argmin", [self], {"axis": axis, "keepdims": keepdims})
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return invoke("norm", [self], {"ord": ord, "axis": axis,
+                                       "keepdims": keepdims})
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return invoke("argsort", [self], {"axis": axis,
+                                          "is_ascend": is_ascend})
+
+    def sort(self, axis=-1, is_ascend=True):
+        return invoke("sort", [self], {"axis": axis, "is_ascend": is_ascend})
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return invoke("topk", [self], {"axis": axis, "k": k,
+                                       "ret_typ": ret_typ,
+                                       "is_ascend": is_ascend})
+
+    def reshape_like(self, other):
+        return invoke("reshape_like", [self, other], {})
+
+    def squeeze(self, axis=None):
+        return invoke("squeeze", [self], {"axis": axis})
+
+    def broadcast_to(self, shape):
+        return invoke("broadcast_to", [self], {"shape": tuple(shape)})
+
+    def broadcast_like(self, other):
+        return invoke("broadcast_like", [self, other], {})
+
+    def slice(self, begin, end, step=None):
+        return invoke("slice", [self], {"begin": begin, "end": end,
+                                        "step": step})
+
+    def slice_axis(self, axis, begin, end):
+        return invoke("slice_axis", [self], {"axis": axis, "begin": begin,
+                                             "end": end})
+
+    def take(self, indices, axis=0, mode="clip"):
+        return invoke("take", [self, indices], {"axis": axis, "mode": mode})
+
+    def repeat(self, repeats, axis=None):
+        return invoke("repeat", [self], {"repeats": repeats, "axis": axis})
+
+    def tile(self, reps):
+        return invoke("tile", [self], {"reps": tuple(reps)})
+
+    def pad(self, mode, pad_width, constant_value=0.0):
+        return invoke("Pad", [self], {"mode": mode,
+                                      "pad_width": tuple(pad_width),
+                                      "constant_value": constant_value})
+
+    def clip(self, a_min, a_max):
+        return invoke("clip", [self], {"a_min": a_min, "a_max": a_max})
+
     def dot(self, other, transpose_a=False, transpose_b=False):
         return invoke("dot", [self, other], {"transpose_a": transpose_a,
                                              "transpose_b": transpose_b})
@@ -554,6 +648,13 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
     if repeat > 1:
         v = v.repeat_interleave(repeat)
     return NDArray(v)
+
+
+def moveaxis(tensor, source, destination):
+    """``tensor`` with axis ``source`` moved to ``destination`` (a view,
+    not recorded, as the JAX package's)."""
+    return NDArray(torch.movedim(tensor._data.detach(), source,
+                                 destination))
 
 
 def concat(*data, dim=1, out=None):

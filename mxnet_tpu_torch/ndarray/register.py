@@ -28,8 +28,14 @@ _POS_ATTRS = {
     "one_hot": ["depth", "on_value", "off_value"],
     "clip": ["a_min", "a_max"],
     "expand_dims": ["axis"],
+    "repeat": ["repeats", "axis"],
+    "tile": ["reps"],
     "reshape": ["shape"],
     "Reshape": ["shape"],
+    "broadcast_to": ["shape"],
+    "slice_axis": ["axis", "begin", "end"],
+    "slice": ["begin", "end", "step"],
+    "smooth_l1": ["scalar"],
     "Cast": ["dtype"],
     "cast": ["dtype"],
 }

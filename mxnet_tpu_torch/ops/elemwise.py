@@ -1,12 +1,15 @@
-"""Elementwise, scalar and broadcast binary ops (a subset of
-``mxnet_tpu/ops/elemwise.py``): the binary broadcast ops of ``_BINARY``
-(:217-239) and their aliases (:240-252), the scalar ops of ``_SCALAR``
-(:170-188), the unary ops that ``NDArray``'s methods call, ``Cast``,
-``zeros_like``, ``ones_like``, ``BlockGrad`` and ``make_loss``.
+"""Elementwise, scalar and broadcast binary ops (counterpart of
+``mxnet_tpu/ops/elemwise.py``): the unary table (:28-76), the binary
+broadcast ops of ``_BINARY`` (:217-239) and their aliases (:240-252), the
+scalar ops of ``_SCALAR`` (:170-188), ``Cast``, ``zeros_like``,
+``ones_like``, ``BlockGrad``, ``make_loss``, ``add_n``/``ElementWiseSum``
+(:255), ``hard_sigmoid`` (:266) and ``smooth_l1`` (:278).
 
-Comparisons and logical ops return their first input's dtype, as there.
-A scalar op keeps its array's dtype, as in MXNet: an int32 array plus 1 is
-int32, and an integer array takes the integer part of a float scalar.
+Comparisons and logical ops return their first input's dtype, as there;
+``isnan`` and ``isinf`` return bool.  A scalar op keeps its array's dtype,
+as in MXNet: an int32 array plus 1 is int32, and an integer array takes
+the integer part of a float scalar.  ``Cast`` to an integer type
+saturates as XLA's convert does (``ndarray.cast``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,30 @@ __all__ = []
 def _round(x):
     # n.5 away from zero (mshadow_op.h), not torch's ties-to-even
     return torch.where(x >= 0, torch.floor(x + 0.5), torch.ceil(x - 0.5))
+
+
+def _rint(x):
+    # n.5 to n (ties toward -inf), the JAX op's formula
+    f = torch.floor(x)
+    return torch.where(x - f <= 0.5, f, torch.ceil(x))
+
+
+def _cbrt(x):
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
+def _gamma(x):
+    """``jax.scipy.special.gamma``: gammasgn(x) * exp(lgamma(x)); NaN at
+    the negative integers, the signed infinity at a signed zero."""
+    f = torch.floor(x)
+    neg = x < 0
+    nan = (neg & (x == f)) | torch.isnan(x)
+    minus = (neg & (torch.remainder(f, 2) != 0)) \
+        | ((x == 0) & torch.signbit(x))
+    sgn = torch.where(nan, torch.full_like(x, float("nan")),
+                      torch.where(minus, torch.full_like(x, -1.0),
+                                  torch.ones_like(x)))
+    return sgn * torch.exp(torch.lgamma(x))
 
 
 _UNARY = {
@@ -37,6 +64,38 @@ _UNARY = {
     "sigmoid": torch.sigmoid,
     "relu": torch.relu,
     "identity": lambda x: x,
+    "rint": _rint,
+    "trunc": torch.trunc,
+    "fix": torch.trunc,
+    "rsqrt": lambda x: 1.0 / torch.sqrt(x),
+    "cbrt": _cbrt,
+    "rcbrt": lambda x: 1.0 / _cbrt(x),
+    "log10": torch.log10,
+    "log2": torch.log2,
+    "log1p": torch.log1p,
+    "expm1": torch.expm1,
+    "gamma": _gamma,
+    "gammaln": torch.lgamma,
+    "sin": torch.sin,
+    "cos": torch.cos,
+    "tan": torch.tan,
+    "arcsin": torch.asin,
+    "arccos": torch.acos,
+    "arctan": torch.atan,
+    "degrees": torch.rad2deg,
+    "radians": torch.deg2rad,
+    "sinh": torch.sinh,
+    "cosh": torch.cosh,
+    "arcsinh": torch.asinh,
+    "arccosh": torch.acosh,
+    "arctanh": torch.atanh,
+    "reciprocal": lambda x: 1.0 / x,
+    "softsign": lambda x: x / (1.0 + torch.abs(x)),
+    "erf": torch.erf,
+    "erfinv": torch.erfinv,
+    "logical_not": lambda x: (x == 0).to(x.dtype),
+    "isnan": torch.isnan,
+    "isinf": torch.isinf,
 }
 
 
@@ -67,8 +126,8 @@ def _make_loss(attrs, x):
 
 @register("Cast")
 def _cast(attrs, x):
-    from ..ndarray.ndarray import torch_dtype
-    return x.to(torch_dtype(attrs.get("dtype", "float32")))
+    from ..ndarray.ndarray import cast, torch_dtype
+    return cast(x, torch_dtype(attrs.get("dtype", "float32")))
 
 
 alias("cast", "Cast")
@@ -183,3 +242,33 @@ for _new, _old in (("elemwise_add", "broadcast_add"),
                    ("maximum", "broadcast_maximum"),
                    ("minimum", "broadcast_minimum")):
     alias(_new, _old)
+
+
+@register("add_n")
+def _add_n(attrs, *arrays):
+    out = arrays[0]
+    for a in arrays[1:]:
+        out = out + a
+    return out
+
+
+alias("ElementWiseSum", "add_n")
+
+
+@register("hard_sigmoid")
+def _hard_sigmoid(attrs, x):
+    """clip(alpha * x + beta, 0, 1), alpha 0.2 and beta 0.5 by default;
+    its gradient is 0 outside (0, 1)."""
+    alpha = float(attrs.get("alpha", 0.2))
+    beta = float(attrs.get("beta", 0.5))
+    return torch.clamp(alpha * x + beta, 0.0, 1.0)
+
+
+@register("smooth_l1")
+def _smooth_l1(attrs, x):
+    """0.5 (sigma x)^2 where |x| < 1 / sigma^2, else |x| - 0.5 / sigma^2
+    (sigma is ``scalar``)."""
+    sigma = float(attrs.get("scalar", 1.0))
+    s2 = sigma * sigma
+    absx = torch.abs(x)
+    return torch.where(absx < 1.0 / s2, 0.5 * s2 * x * x, absx - 0.5 / s2)

@@ -1,10 +1,14 @@
-"""Neural-network ops (the ResNet and LM subset of
-``mxnet_tpu/ops/nn_ops.py``): ``FullyConnected`` :47, ``Convolution`` :79,
-``Deconvolution`` :110, ``Pooling`` :161, ``BatchNorm`` :329,
-``LayerNorm`` :354, ``Activation`` :416, ``LeakyReLU`` :441, ``softmax``
-:476, ``log_softmax`` :486, ``SoftmaxOutput`` :512,
-``softmax_cross_entropy`` :633, ``Dropout`` :711, ``InstanceNorm`` :367
-and ``CTCLoss`` :966.
+"""Neural-network ops (counterpart of ``mxnet_tpu/ops/nn_ops.py``):
+``FullyConnected`` :47, ``Convolution`` :79, ``Deconvolution`` :110,
+``Pooling`` :161, ``UpSampling`` :257, ``BatchNorm`` :329, ``LayerNorm``
+:354, ``InstanceNorm`` :367, ``L2Normalization`` :379, ``LRN`` :396,
+``Activation`` :416, ``LeakyReLU`` :441, ``softmax`` :476,
+``log_softmax`` :486, ``softmin`` :496, ``SoftmaxActivation`` :503,
+``SoftmaxOutput`` :512, ``softmax_cross_entropy`` :633, the regression
+outputs :642-704, ``Dropout`` :711, ``SequenceMask``/``Last``/``Reverse``
+:735-785, ``CTCLoss`` :966 and ``IdentityAttachKLSparseReg`` :1179.
+``RNN``, ``_contrib_SyncBatchNorm`` and the spatial samplers are not
+ported yet.
 
 The Gluon layers compute through the functions here
 (:func:`fully_connected`, :func:`convolution`, :func:`deconvolution`,
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import alias, register
+from .tensor_ops import _index
 
 __all__ = ["ACTIVATIONS", "fully_connected", "convolution",
            "deconvolution", "pooling",
@@ -230,6 +235,46 @@ def _pooling(attrs, data):
                    convention)
 
 
+@register("UpSampling")
+def _upsampling(attrs, *inputs):
+    """``nearest``: each input repeated up to the first input's scaled
+    extent, then concatenated on channels (``multi_input_mode`` concat) or
+    summed; ``bilinear``: a grouped Deconvolution over the weight input
+    (kernel 2s - s % 2, stride s, pad ceil((s - 1) / 2), no bias), as the
+    reference implements it (upsampling-inl.h:170-206)."""
+    scale = int(attrs["scale"])
+    sample_type = attrs.get("sample_type", "nearest")
+    if sample_type == "nearest":
+        out_h = inputs[0].shape[2] * scale
+        ups = []
+        for x in inputs:
+            s_i = out_h // x.shape[2]
+            ups.append(x.repeat_interleave(s_i, dim=2)
+                       .repeat_interleave(s_i, dim=3))
+        if len(ups) == 1:
+            return ups[0]
+        if attrs.get("multi_input_mode") == "sum":
+            out = ups[0]
+            for u in ups[1:]:
+                out = out + u
+            return out
+        return torch.cat(ups, dim=1)
+    if sample_type == "bilinear":
+        if len(inputs) < 2:
+            raise ValueError(
+                "UpSampling(sample_type='bilinear') takes (data, weight): "
+                "it is a grouped Deconvolution over a learnable kernel")
+        data, weight = inputs[0], inputs[1]
+        kernel = 2 * scale - scale % 2
+        pad = int(math.ceil((scale - 1) / 2.0))
+        num_filter = int(attrs.get("num_filter", data.shape[1]))
+        return _deconvolution(
+            {"kernel": (kernel, kernel), "stride": (scale, scale),
+             "pad": (pad, pad), "num_group": num_filter,
+             "num_filter": num_filter, "no_bias": True}, data, weight)
+    raise ValueError(sample_type)
+
+
 # ---------------------------------------------------------------------------
 # Normalization
 
@@ -339,6 +384,41 @@ def _leaky_relu(attrs, data, gamma=None):
     raise ValueError("unknown act_type %s" % act)
 
 
+@register("L2Normalization")
+def _l2_normalization(attrs, data):
+    """``data`` over sqrt(sum of squares + eps) across every axis but the
+    batch (``instance``), the channels (``channel``) or the spatial axes
+    (``spatial``)."""
+    eps = float(attrs.get("eps", 1e-10))
+    mode = attrs.get("mode", "instance")
+    if mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    elif mode == "spatial":
+        axes = tuple(range(2, data.dim()))
+    else:
+        raise ValueError(mode)
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=axes,
+                                       keepdim=True) + eps)
+
+
+@register("LRN")
+def _lrn(attrs, data):
+    """Local response normalization across ``nsize`` channels:
+    x / (knorm + alpha * sum(x^2) / nsize)^beta."""
+    alpha = float(attrs.get("alpha", 1e-4))
+    beta = float(attrs.get("beta", 0.75))
+    knorm = float(attrs.get("knorm", 2.0))
+    nsize = int(attrs["nsize"])
+    pad = nsize // 2
+    sq_pad = F.pad(torch.square(data), (0, 0, 0, 0, pad, pad))
+    acc = torch.zeros_like(data)
+    for i in range(nsize):
+        acc = acc + sq_pad[:, i:i + data.shape[1]]
+    return data / torch.pow(knorm + alpha * acc / nsize, beta)
+
+
 def _temper(attrs, data):
     temperature = attrs.get("temperature")
     return data / float(temperature) if temperature else data
@@ -353,6 +433,21 @@ def _softmax(attrs, data):
 def _log_softmax(attrs, data):
     return torch.log_softmax(_temper(attrs, data),
                              dim=int(attrs.get("axis", -1)))
+
+
+@register("softmin")
+def _softmin(attrs, data):
+    return torch.softmax(-data, dim=int(attrs.get("axis", -1)))
+
+
+@register("SoftmaxActivation")
+def _softmax_activation(attrs, data):
+    """Softmax over the channels (``mode='channel'``) or over all but the
+    batch axis (``instance``)."""
+    if attrs.get("mode", "instance") == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
 
 
 class _SoftmaxOutput(torch.autograd.Function):
@@ -551,6 +646,95 @@ alias("_contrib_ctc_loss", "CTCLoss")
 
 
 # ---------------------------------------------------------------------------
+# regression output layers: the forward is the prediction, the gradient
+# grad_scale * (pred - label) (its sign for MAE) over the outputs a sample,
+# whatever the head gradient
+
+class _RegressionOutput(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(data if kind != "logistic" else out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        pred, label = ctx.saved_tensors
+        num_out = max(math.prod(pred.shape[1:]), 1)
+        diff = pred - label.reshape(pred.shape)
+        if ctx.kind == "mae":
+            diff = torch.sign(diff)
+        return ctx.grad_scale * diff / num_out, None, None, None
+
+
+def _regression(kind):
+    def fcompute(attrs, data, label):
+        return _RegressionOutput.apply(data, label, kind,
+                                       float(attrs.get("grad_scale", 1.0)))
+    return fcompute
+
+
+register("LinearRegressionOutput")(_regression("linear"))
+register("MAERegressionOutput")(_regression("mae"))
+register("LogisticRegressionOutput")(_regression("logistic"))
+
+
+# ---------------------------------------------------------------------------
+# sequence ops (sequence_mask.cc, sequence_last.cc, sequence_reverse.cc):
+# time on axis 0 (T, B, ...) or, for Mask and Last, on axis 1 (B, T, ...)
+
+@register("SequenceMask")
+def _sequence_mask(attrs, data, sequence_length=None):
+    """``value`` at the steps of each sequence past its length."""
+    if not attrs.get("use_sequence_length", False) \
+            or sequence_length is None:
+        return data
+    axis = int(attrs.get("axis", 0))
+    pos = torch.arange(data.shape[axis], device=data.device)
+    lens = _index(sequence_length)
+    mask = pos[:, None] < lens[None, :] if axis == 0 \
+        else pos[None, :] < lens[:, None]
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - 2))
+    return torch.where(mask, data, torch.full_like(
+        data, float(attrs.get("value", 0.0))))
+
+
+@register("SequenceLast")
+def _sequence_last(attrs, data, sequence_length=None):
+    """Each sequence's last step (at its length, or the axis's end)."""
+    axis = int(attrs.get("axis", 0))
+    if not attrs.get("use_sequence_length", False) \
+            or sequence_length is None:
+        return data.select(axis, -1)
+    last = _index(sequence_length) - 1
+    shape = ((1, -1) if axis == 0 else (-1, 1)) + (1,) * (data.dim() - 2)
+    idx = last.reshape(shape).expand(
+        *[1 if d == axis else n for d, n in enumerate(data.shape)])
+    return torch.gather(data, axis, idx).squeeze(axis)
+
+
+@register("SequenceReverse")
+def _sequence_reverse(attrs, data, sequence_length=None):
+    """The first ``length`` steps of each sequence reversed (axis 0), the
+    rest in place."""
+    if not attrs.get("use_sequence_length", False) \
+            or sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    lens = _index(sequence_length)[None, :]
+    pos = torch.arange(data.shape[0], device=data.device)[:, None]
+    rev = torch.where(pos < lens, lens - 1 - pos, pos)
+    rev = rev.reshape(tuple(rev.shape) + (1,) * (data.dim() - 2))
+    return torch.gather(data, 0, rev.expand(data.shape))
+
+
+@register("IdentityAttachKLSparseReg")
+def _identity_attach_kl(attrs, data):
+    return data
+
+
+# ---------------------------------------------------------------------------
 # the symbolic API's input specs and parameter shapes (the JAX package's
 # ``nn_ops.py:1185-1340``, for the ops ported here)
 
@@ -638,6 +822,10 @@ def _softmax_output_label_shape(attrs, in_shapes):
     return {"label": (data[0],)}
 
 
+def _regression_label_shape(attrs, in_shapes):
+    return {"label": tuple(in_shapes[0])}
+
+
 def set_symbol_specs():
     """Attach the specs (once every op module has registered)."""
     from .registry import get_op
@@ -660,6 +848,14 @@ def set_symbol_specs():
         "softmax_cross_entropy": (["data", "label:label"],
                                   _softmax_output_label_shape),
         "CTCLoss": (["data", "label:label"], None),
+        "LinearRegressionOutput": (["data", "label:label"],
+                                   _regression_label_shape),
+        "MAERegressionOutput": (["data", "label:label"],
+                                _regression_label_shape),
+        "LogisticRegressionOutput": (["data", "label:label"],
+                                     _regression_label_shape),
+        "SVMOutput": (["data", "label:label"],
+                      lambda attrs, in_shapes: {"label": (in_shapes[0][0],)}),
     }
     for name, (spec, shapes) in specs.items():
         op = get_op(name)

@@ -1,6 +1,7 @@
-"""Reductions (a subset of ``mxnet_tpu/ops/reduce_ops.py``): the
+"""Reductions (counterpart of ``mxnet_tpu/ops/reduce_ops.py``): the
 ``_REDUCE`` table (:44-52) with ``sum_axis``/``max_axis``/``min_axis``,
-``argmax`` (:84) and ``pick`` (:118).
+``_square_sum`` (:62), ``norm`` (:69), ``argmax`` (:84), ``argmin``
+(:98), ``argmax_channel`` (:112) and ``pick`` (:118).
 
 MXNet 1.3's conventions, as there: reducing every axis gives shape (1,),
 not a 0-d array; ``argmax`` returns float32 indices; ``mean`` of an
@@ -90,17 +91,50 @@ for _name, _fn in _REDUCE.items():
 alias("sum_axis", "sum")
 alias("max_axis", "max")
 alias("min_axis", "min")
+# fused square and sum (square_sum.cc), dense
+_make_reduce("_square_sum",
+             lambda x, d, k: torch.sum(torch.square(x), dim=d, keepdim=k))
+
+
+@register("norm")
+def _norm(attrs, x):
+    """The L1 norm (``ord=1``) or else the L2 norm over ``axis``."""
+    axis = _norm_axis(attrs.get("axis"))
+    keepdims = bool(attrs.get("keepdims", False))
+    dims = _dims(x, axis)
+    if attrs.get("ord", 2) == 1:
+        out = torch.sum(torch.abs(x), dim=dims, keepdim=keepdims)
+    else:
+        out = torch.sqrt(torch.sum(torch.square(x), dim=dims,
+                                   keepdim=keepdims))
+    if axis is None and not keepdims:
+        out = out.reshape(1)
+    return out
+
+
+def _arg(fn, attrs, x):
+    axis = attrs.get("axis")
+    if axis is None:
+        out = fn(x.reshape(-1)).reshape(1)
+    else:
+        out = fn(x, dim=int(axis),
+                 keepdim=bool(attrs.get("keepdims", False)))
+    return out.to(torch.float32)
 
 
 @register("argmax", no_grad=True)
 def _argmax(attrs, x):
-    axis = attrs.get("axis")
-    if axis is None:
-        out = torch.argmax(x.reshape(-1)).reshape(1)
-    else:
-        out = torch.argmax(x, dim=int(axis),
-                           keepdim=bool(attrs.get("keepdims", False)))
-    return out.to(torch.float32)
+    return _arg(torch.argmax, attrs, x)
+
+
+@register("argmin", no_grad=True)
+def _argmin(attrs, x):
+    return _arg(torch.argmin, attrs, x)
+
+
+@register("argmax_channel", no_grad=True)
+def _argmax_channel(attrs, x):
+    return torch.argmax(x, dim=1).to(torch.float32)
 
 
 def pick(x, index, axis=-1, keepdims=False, mode="clip"):
