@@ -79,6 +79,28 @@ a small quantized ResNet-18 on the card and the CPU (``int8_vs_cpu``);
 and ``models/quantize_infer.py`` (``quantize_infer``).  Its int8 products
 are cuBLASLt's int8 GEMM (``torch._int_mm``), as the JAX package's are
 XLA int8 dots: no hand kernel, and flash_attention launches 0 times there.
+Then the input pipeline (``input_phases``): a probe of PIL and
+``jpeglib.h`` (without libjpeg the native decode pipeline does not build
+and the script says so on a line of its own); ResNet-50 v1 at 224 x 224,
+B = 32, fp32 trained from a RecordIO file of 320 seeded images packed by
+``recordio.pack_img``, in four ways over one seeded net: a pre-staged
+batch, ``train_imagenet.py``'s ``ImageRecordIterator`` read inline, the
+same behind ``PrefetchingIter(ctx=card)``, and a ``DataLoader`` with
+worker processes and ``prefetch_to_device``, each FEED_EPOCHS epochs in
+turn (``feed_resnet50``: median img/s with its spread, overlap, speedup,
+decode ms, each step's host ms, the feed's h2d and starved ms, peak
+memory, the device's idle share over the e2e epoch from a traced one),
+``image_classification.main --data-train``, and
+``Module.fit(prefetch_to_device=card)`` on the compiled step over the
+native NHWC uint8 pipeline, or the Python one without libjpeg (every batch
+in file order, one capture); the device feed on the card
+(``feed_card_checks``: staging and a fed SGD step bitwise, 200 fed
+batches none overwritten with ``record_stream``, against a control
+without it, a CachedOp capture during which the feed thread stages
+batches, a CUDA dataset
+refused by worker processes, native decode against PIL's); and
+``train_mnist.py`` over 60,000 seeded idx images through ``MNISTIter``
+and the feed (``mnist_idx``).  No hand kernel runs there either.
 
     python3 chip_smoke.py
 
@@ -93,6 +115,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import random
 import re
 import subprocess
 import sys
@@ -6053,6 +6076,721 @@ def int8_phases(cuda_ops, dev, card):
     return cuda_ops.flash_attention.launches
 
 
+# ---------------------------------------------------------------------------
+# the input pipeline (PR 16): RecordIO, the native decode pipeline, the
+# Python image iterator, DeviceFeed on a CUDA side stream, MNISTIter
+
+
+FEED_IMAGES, FEED_SIDE = 320, 256   # the packed .rec: 10 batches of 32
+FEED_SHAPE = (3, RESNET_SIZE, RESNET_SIZE)
+FEED_CLASSES = 1000
+FEED_EPOCHS = 5       # epochs of each way, in turn
+FEED_WORKERS = 4      # DataLoader processes beside the step (8 host cores)
+NATIVE_MEAN_BOUND = 3.0    # tests/test_recordio.py::test_native_image_pipeline
+ALLOC_BATCHES, ALLOC_ELEMS = 200, 1 << 20
+ALLOC_SLEEP_CYCLES = 2_000_000    # ~1 ms: the consumer's stream lags
+CAPTURE_FED, CAPTURE_WAIT_S = 4, 30.0
+MNIST_IDX_N = 60000
+MNIST_IDX_RTOL, MNIST_IDX_ATOL = 1e-5, 1e-7   # tests/test_torch_module.py
+
+
+def input_probe():
+    """Phase: what the machine has for images: PIL (JPEG payloads; without
+    it ``recordio.pack_img`` writes the JAX package's ``.npy`` payloads),
+    and whether ``g++`` finds ``jpeglib.h`` (the native decode pipeline).
+    Returns (pil, native)."""
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    probe = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                           input="#include <jpeglib.h>\n", text=True,
+                           capture_output=True)
+    jpeg = probe.returncode == 0
+    from mxnet_tpu_torch import _native
+    t0 = time.time()
+    lib = _native.get_lib()
+    build_s = round(time.time() - t0, 2)
+    native = (lib is not None and hasattr(lib, "mxtpu_pipe_open")
+              and pil is not None)
+    phase("input_probe", pil=pil, libjpeg=jpeg,
+          native_library=_native.library_path() if lib else None,
+          native_build_s=build_s,
+          payload="jpeg" if pil else "npy (no PIL: the JAX package's "
+          "no-PIL format)")
+    if not jpeg:
+        print("native_pipeline: unavailable (no libjpeg)", flush=True)
+    elif not pil:
+        print("native_pipeline: unavailable (no PIL: no JPEG payloads to "
+              "decode)", flush=True)
+    return pil, native
+
+
+def feed_images(seed=0):
+    """FEED_IMAGES seeded FEED_SIDE x FEED_SIDE RGB images: a random
+    pattern an eighth of the side, scaled up 8 times, plus pixel noise
+    (smooth, as photographs are, so that JPEG sizes and decode times are
+    those of real images), and their labels."""
+    rng = np.random.RandomState(seed)
+    for i in range(FEED_IMAGES):
+        coarse = rng.randint(0, 256, (FEED_SIDE // 8, FEED_SIDE // 8, 3))
+        img = np.repeat(np.repeat(coarse, 8, axis=0), 8, axis=1)
+        img = np.clip(img + rng.randint(-12, 13, img.shape), 0, 255)
+        yield img.astype(np.uint8), float(rng.randint(0, FEED_CLASSES))
+
+
+def pack_feed_rec(path):
+    """The .rec (and .idx) of ``feed_images`` through the port's
+    ``recordio.pack_img``; returns the labels in file order and the
+    file's bytes."""
+    from mxnet_tpu_torch import recordio
+
+    labels = []
+    w = recordio.MXIndexedRecordIO(str(path)[:-4] + ".idx", str(path), "w")
+    for i, (img, label) in enumerate(feed_images()):
+        w.write_idx(i, recordio.pack_img(recordio.IRHeader(0, label, i, 0),
+                                         img, quality=90))
+        labels.append(label)
+    w.close()
+    return np.array(labels, np.float32), path.stat().st_size
+
+
+def device_busy(fn):
+    """(device busy ms, window ms) of ``fn()`` under torch.profiler: the
+    union of the device's kernel, copy and set intervals, and the
+    window's host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    cpu = torch.autograd.DeviceType.CPU
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type != cpu
+                   and not e.key.startswith("ProfilerStep"))
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3, window_ms
+
+
+def feed_sample(img, label):
+    """``train_imagenet.py``'s augmentation of one decoded image, in a
+    DataLoader worker: a random crop to FEED_SHAPE and a mirror half the
+    time, from Python's ``random`` (``ImageRecordIterator``'s
+    ``RandomCropAug`` and ``HorizontalFlipAug``), as a float32 CHW row."""
+    from mxnet_tpu_torch import image
+
+    x = image.random_crop(img, FEED_SHAPE[:0:-1])[0].asnumpy()
+    if random.random() < 0.5:
+        x = x[:, ::-1]
+    return (np.ascontiguousarray(x.transpose(2, 0, 1), dtype=np.float32),
+            np.float32(label))
+
+
+def feed_resnet50(dev, card, workdir, native):
+    """Phase ``feed_resnet50``: ResNet-50 v1 trained at 224 x 224, B = 32,
+    fp32 (TF32 off) from a packed .rec in four ways over one seeded net:
+    ``compute`` (one pre-staged batch), ``sync`` (the Python
+    ``ImageRecordIterator`` of ``train_imagenet.py``: shuffle, random crop
+    and mirror, read inline and copied in the step), ``e2e`` (the same
+    iterator behind ``PrefetchingIter(ctx=card)``, as
+    ``image_classification --data-train`` reads it) and ``workers`` (a
+    ``DataLoader`` of FEED_WORKERS processes); FEED_EPOCHS epochs of each,
+    in turn, and one more e2e epoch under torch.profiler for the device's
+    busy time; then
+    ``image_classification.main --data-train`` itself for one epoch; then
+    ``Module.fit(prefetch_to_device=card)`` for one epoch over
+    ``NativeImageRecordIter(layout="NHWC")`` of uint8 on the compiled
+    step, when the native pipeline built."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, sym
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.image import ImageRecordIterator
+    from mxnet_tpu_torch.metric import Accuracy
+    from mxnet_tpu_torch.models import image_classification as ic
+
+    t0 = time.time()
+    rec = workdir / "feed.rec"
+    labels, rec_bytes = pack_feed_rec(rec)
+    pack_s = time.time() - t0
+    steps = FEED_IMAGES // RESNET_B
+    args = resnet_args(RESNET_B)
+    args.data_train = str(rec)
+
+    def host_iter():
+        return ImageRecordIterator(
+            path_imgrec=str(rec), data_shape=FEED_SHAPE,
+            batch_size=RESNET_B, shuffle=True, rand_crop=True,
+            rand_mirror=True)
+
+    # the host decode alone, batch by batch
+    it = host_iter()
+    decode_ms = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        it.next()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+
+    net = new_resnet(dev, 0)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": args.lr, "momentum": args.mom,
+                       "wd": args.wd})
+    ce, metric = SoftmaxCrossEntropyLoss(), Accuracy()
+
+    def step(x, y):
+        return ic.train_step(net, trainer, ce, metric, x, y, RESNET_B)
+
+    staged = (torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (RESNET_B,) + FEED_SHAPE).astype(np.float32)).to(dev),
+        torch.from_numpy(labels[:RESNET_B]).to(dev))
+    for _ in range(2):      # cuDNN's plans and the allocator's pools
+        step(*staged)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    losses = []
+    step_ms = {}
+
+    def timed(way, batches):
+        """One epoch of ``batches`` through the step: its seconds; each
+        step's host time (the call alone, the wait for its batch left out)
+        goes under ``way``."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for x, y in batches:
+            t1 = time.perf_counter()
+            losses.append(step(x, y))
+            step_ms.setdefault(way, []).append(
+                (time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def inline():
+        for b in host_iter():
+            yield b.data[0]._data.to(dev), b.label[0]._data.to(dev)
+
+    def fed(it, seen, pairs=False):
+        for b in it:
+            x, y = (b[0]._data, b[1]._data) if pairs else (
+                b.data[0]._data, b.label[0]._data)
+            seen.append(y)
+            yield x, y
+
+    def check_order(way, seen):
+        got = torch.cat(seen).cpu().numpy()
+        if len(seen) != steps or not np.array_equal(got, labels):
+            fail("feed_resnet50: the %s epoch gave %d batches, labels in "
+                 "file order: %s" % (way, len(seen), np.array_equal(
+                     got[:len(labels)], labels)))
+
+    def e2e_epoch():
+        """One ``image_classification --data-train`` epoch from a new
+        iterator (the feed's cold start included, as in every epoch)."""
+        it, seen = ic.get_rec_iter(args, FEED_SHAPE, dev), []
+        s = timed("e2e", fed(it, seen))
+        stats = it.stats()
+        it.close()
+        check_order("e2e", seen)
+        if stats["batches"] != steps:
+            fail("feed_resnet50: the feed staged %d batches"
+                 % stats["batches"])
+        return s, stats
+
+    # the same decode and augmentation in DataLoader worker processes
+    loader = gluon.data.DataLoader(
+        gluon.data.vision.ImageRecordDataset(str(rec), transform=feed_sample),
+        batch_size=RESNET_B, num_workers=FEED_WORKERS,
+        prefetch_to_device=dev)
+    for _ in loader:        # the first epoch starts the worker processes
+        pass
+    start_method = loader._pool._ctx.get_start_method()
+
+    def workers_epoch():
+        feed, seen = iter(loader), []
+        s = timed("workers", fed(((b[0], b[1]) for b in feed), seen,
+                                 pairs=True))
+        check_order("workers", seen)
+        return s, feed.stats()
+
+    # the ways in turn, FEED_EPOCHS rounds, so that a drift of the card's
+    # clocks or the host's load falls on all of them alike
+    epoch_s = {"compute": [], "sync": [], "e2e": [], "workers": []}
+    feed_stats = {"e2e": [], "workers": []}
+    for _ in range(FEED_EPOCHS):
+        epoch_s["compute"].append(timed("compute", [staged] * steps))
+        epoch_s["sync"].append(timed("sync", inline()))
+        for way, run in (("e2e", e2e_epoch), ("workers", workers_epoch)):
+            s, st = run()
+            epoch_s[way].append(s)
+            feed_stats[way].append(st)
+    loader.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = torch.stack([v.mean() for v in losses]).cpu()
+    if not torch.isfinite(loss).all():
+        fail("feed_resnet50: a loss is not finite: %s" % loss.tolist())
+
+    # the device's busy time over one more e2e epoch, traced; its idle
+    # share is taken against the untraced e2e epochs' median window
+    busy_ms, traced_ms = device_busy(e2e_epoch)
+    e2e_ms = float(np.median(epoch_s["e2e"])) * 1e3
+    idle = 1.0 - busy_ms / e2e_ms
+    if busy_ms <= 0 or idle < 0:
+        fail("feed_resnet50: the trace counts %.1f ms busy in a %.1f ms "
+             "e2e epoch" % (busy_ms, e2e_ms))
+
+    img_s = {k: [FEED_IMAGES / v for v in vs] for k, vs in epoch_s.items()}
+    med = {k: float(np.median(v)) for k, v in img_s.items()}
+
+    def spread(way):
+        return json.dumps([round(min(img_s[way]), 2),
+                           round(max(img_s[way]), 2)])
+
+    def med_stat(way, key):
+        return float(np.median([st[key] for st in feed_stats[way]]))
+    phase("feed_resnet50", network="resnet50_v1", batch=RESNET_B,
+          image=json.dumps(FEED_SHAPE), dtype="float32", steps=steps,
+          backend="python", records=FEED_IMAGES, rec_bytes=rec_bytes,
+          pack_s=pack_s, epochs_per_way=FEED_EPOCHS,
+          compute_imgs_per_s=med["compute"],
+          compute_min_max=spread("compute"),
+          sync_imgs_per_s=med["sync"], sync_min_max=spread("sync"),
+          e2e_imgs_per_s=med["e2e"], e2e_min_max=spread("e2e"),
+          overlap=med["e2e"] / med["compute"],
+          speedup=med["e2e"] / med["sync"],
+          overlap_bar=0.85, speedup_bar=1.5,
+          decode_ms_per_batch=float(np.median(decode_ms)),
+          decode_ms=json.dumps([round(v, 2) for v in decode_ms]),
+          step_host_ms=json.dumps({k: round(float(np.median(v)), 2)
+                                   for k, v in step_ms.items()}),
+          feed_h2d_ms=med_stat("e2e", "h2d_ms"),
+          feed_avg_h2d_ms=med_stat("e2e", "avg_h2d_ms"),
+          feed_starved_ms=med_stat("e2e", "starved_ms"),
+          feed_peak_depth=max(st["max_queue_depth"]
+                              for st in feed_stats["e2e"]),
+          workers=FEED_WORKERS, workers_start=start_method,
+          workers_imgs_per_s=med["workers"],
+          workers_min_max=spread("workers"),
+          workers_overlap=med["workers"] / med["compute"],
+          workers_speedup=med["workers"] / med["sync"],
+          workers_feed_h2d_ms=med_stat("workers", "h2d_ms"),
+          workers_feed_starved_ms=med_stat("workers", "starved_ms"),
+          peak_memory_gb=peak_gb, e2e_idle_share=idle,
+          e2e_device_busy_ms=busy_ms, e2e_window_ms=e2e_ms,
+          traced_window_ms=traced_ms,
+          traced_epoch_idle_share=1.0 - busy_ms / traced_ms,
+          losses_first_last=json.dumps([round(v, 4) for v in
+                                        loss[:3].tolist() + loss[-3:].tolist()]),
+          batches_in_file_order=True, card='"%s"' % card)
+    del net, trainer, staged, losses
+
+    mx.random.seed(0)
+    t0 = time.time()
+    ic.main(["--network", "resnet50_v1", "--batch-size", str(RESNET_B),
+             "--num-epochs", "1", "--data-train", str(rec)])
+    torch.cuda.synchronize()
+    phase("feed_resnet50_main", data_train=rec.name, backend="python",
+          seconds=time.time() - t0, card='"%s"' % card)
+
+    if native:
+        from mxnet_tpu_torch.io.native_image_iter import (
+            NativeImageRecordIter)
+
+        def module_iter():
+            return NativeImageRecordIter(
+                path_imgrec=str(rec), data_shape=FEED_SHAPE,
+                batch_size=RESNET_B, layout="NHWC")
+        backend, layout, dtype = "native", "NHWC", np.uint8
+    else:
+        print("native_pipeline: unavailable; feed_resnet50_module reads "
+              "the python backend", flush=True)
+
+        def module_iter():
+            return ImageRecordIterator(path_imgrec=str(rec),
+                                       data_shape=FEED_SHAPE,
+                                       batch_size=RESNET_B)
+        backend, layout, dtype = "python", "NCHW", np.float32
+
+    # every batch, in file order, through the feed
+    order = []
+    it = module_iter()
+    for b in mx.io.DeviceFeed(it, ctx=dev):
+        if b.data[0].context != dev or b.data[0].dtype != dtype:
+            fail("feed_resnet50: a %s batch is %s on %s"
+                 % (backend, b.data[0].dtype, b.data[0].context))
+        order.append(b.label[0]._data)
+    got = torch.cat(order).cpu().numpy()
+    skipped = getattr(it, "skipped", 0)
+    if skipped or not np.array_equal(got, labels):
+        fail("feed_resnet50: %s batches not all in file order (skipped %d)"
+             % (backend, skipped))
+
+    net = new_resnet(dev, 0)
+    x = sym.Cast(sym.var("data"), dtype="float32") * (1.0 / 255)
+    if layout == "NHWC":
+        x = sym.transpose(x, axes=(0, 3, 1, 2))
+    out = sym.SoftmaxOutput(net(x), name="softmax")
+    params = {k: p.data() for k, p in net.collect_params().items()}
+    arg_params = {k: v for k, v in params.items()
+                  if k in out.list_arguments()}
+    aux_params = {k: v for k, v in params.items()
+                  if k in out.list_auxiliary_states()}
+    del net
+    it = module_iter()
+    mod = mx.mod.Module(out, context=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": args.lr, "momentum": args.mom,
+                              "wd": args.wd},
+            arg_params=arg_params, aux_params=aux_params,
+            prefetch_to_device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    cstep = mod._compiled_step
+    if cstep is None:
+        fail("feed_resnet50: Module.fit did not take the compiled step")
+    cache = cstep.cache_stats()
+    fed_stats = mod.feed_stats
+    if cache["misses"] != 1 or cache["hits"] != steps - 1:
+        fail("feed_resnet50: Module.fit captured after warm-up: %s" % cache)
+    if fed_stats["batches"] != steps:
+        fail("feed_resnet50: Module.fit's feed staged %d batches"
+             % fed_stats["batches"])
+    it.reset()
+    mod.forward(mx.io.stage_batch(it.next(), ctx=dev), is_train=False)
+    outs = mod.get_outputs()[0]._data
+    args_after, _ = mod.get_params()
+    if not torch.isfinite(outs).all() or not all(
+            torch.isfinite(v._data).all() for v in args_after.values()):
+        fail("feed_resnet50: Module.fit left non-finite outputs or weights")
+    phase("feed_resnet50_module", backend=backend, layout=layout,
+          dtype=np.dtype(dtype).name, network="resnet50_v1", steps=steps,
+          fit_s=fit_s,
+          imgs_per_s=FEED_IMAGES / fit_s, captures=cache["misses"],
+          hits=cache["hits"], feed_h2d_ms=fed_stats["h2d_ms"],
+          feed_starved_ms=fed_stats["starved_ms"],
+          feed_peak_depth=fed_stats["max_queue_depth"],
+          skipped=skipped, batches_in_file_order=True,
+          card='"%s"' % card)
+
+
+def feed_card_checks(dev, card, workdir, native):
+    """Phase ``feed_card_checks``: a staged batch bit-equal to its host
+    source; an SGD step on a fed batch bit-equal to the step on a
+    pre-staged copy; the allocator check (ALLOC_BATCHES fed batches at
+    depth 2, each read by a kernel queued after the next batch landed and
+    delayed, none overwritten; the same run without ``record_stream`` as a
+    control, not a gate); a CachedOp capture during which the feed thread
+    stages CAPTURE_FED batches;
+    a dataset of CUDA tensors refused with fork workers; and, with the
+    native pipeline, its batches against the Python decoder's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.io import DeviceFeed, device_feed, stage_batch
+
+    rng = np.random.RandomState(2)
+    host = (mx.nd.array(rng.randn(32, 3, 64, 64).astype(np.float32),
+                        ctx=mx.cpu()),
+            torch.from_numpy(rng.randint(0, 10, 32).astype(np.float32)))
+    staged = stage_batch(host, ctx=dev)
+    if staged[0].context != dev or staged[1].device != dev:
+        fail("feed_card_checks: stage_batch left a leaf on the host")
+    if not (torch.equal(staged[0]._data.cpu(), host[0]._data)
+            and torch.equal(staged[1].cpu(), host[1])):
+        fail("feed_card_checks: a staged batch differs from its source")
+    fed, = list(DeviceFeed([host], ctx=dev))
+    if not torch.equal(fed[0]._data.cpu(), host[0]._data):
+        fail("feed_card_checks: a fed batch differs from its source")
+
+    def sgd_step(x, y):
+        mx.random.seed(3)
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Conv2D(8, 3, device=dev), gluon.nn.Flatten(),
+                gluon.nn.Dense(10, device=dev))
+        net.initialize(mx.init.Xavier())
+        net(x)
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1})
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+        loss.backward(torch.ones_like(loss))
+        trainer.step(x.shape[0])
+        return state_copy(net)
+
+    with deterministic_cudnn():
+        a = sgd_step(fed[0]._data, fed[1])
+        b = sgd_step(host[0]._data.to(dev), host[1].to(dev))
+    differ = state_diff(a, b)
+    if differ:
+        fail("feed_card_checks: the step on a fed batch differs: %s" % differ)
+
+    def alloc_run(claim):
+        saved = device_feed._claim
+        if not claim:
+            device_feed._claim = lambda item: None
+        try:
+            src = (torch.full((ALLOC_ELEMS,), float(i))
+                   for i in range(ALLOC_BATCHES))
+            sums = []
+            with DeviceFeed(src, ctx=dev, depth=2) as feed:
+                prev = next(feed)
+                for cur in feed:
+                    # prev is read only after cur has landed, behind a delay
+                    torch.cuda._sleep(ALLOC_SLEEP_CYCLES)
+                    sums.append(prev.sum())
+                    prev = cur
+                sums.append(prev.sum())
+            got = torch.stack(sums).cpu().numpy()
+        finally:
+            device_feed._claim = saved
+        want = np.arange(ALLOC_BATCHES, dtype=np.float64) * ALLOC_ELEMS
+        return int((got != want).sum())
+    overwritten = alloc_run(True)
+    if overwritten:
+        fail("feed_card_checks: %d of %d fed batches were overwritten "
+             "before the consumer read them" % (overwritten, ALLOC_BATCHES))
+    control = alloc_run(False)
+
+    # a CachedOp capture on this thread while the feed thread copies: the
+    # source holds back until the capture has begun, and the Dense layer
+    # being captured waits there, its product queued, until the feed has
+    # staged CAPTURE_FED more batches (the queue holds them all)
+    capturing = threading.Event()
+    during = {}
+
+    def gated():
+        for i in range(64):
+            if i == 1:
+                capturing.wait(CAPTURE_WAIT_S)
+            yield torch.full((4 << 20,), float(i))
+    feed = DeviceFeed(gated(), ctx=dev, depth=64)
+    first = next(feed)
+
+    class Gated(gluon.nn.Dense):
+        def forward(self, x):
+            out = super().forward(x)
+            if "staged" not in during and \
+                    torch.cuda.is_current_stream_capturing():
+                before = feed.stats()["batches"]
+                capturing.set()
+                deadline = time.time() + CAPTURE_WAIT_S
+                while (feed.stats()["batches"] < before + CAPTURE_FED
+                       and time.time() < deadline):
+                    time.sleep(0.001)
+                during["staged"] = feed.stats()["batches"] - before
+            return out
+
+    net = Gated(16, in_units=32, device=dev)
+    net.initialize(mx.init.Xavier())
+    net.hybridize()
+    xin = torch.randn(8, 32, device=dev)
+    out = net(xin)
+    capturing.set()
+    rest = [first] + list(feed)
+    caps = net._cached_op.capture_stats()
+    want_out = net.hybrid_call(xin)
+    if not torch.equal(out, want_out) or caps["captures"] != 1:
+        fail("feed_card_checks: the capture beside the feed: %s" % caps)
+    if during.get("staged", 0) < CAPTURE_FED:
+        fail("feed_card_checks: the feed staged %s batches during the "
+             "capture, not %d" % (during.get("staged"), CAPTURE_FED))
+    vals = torch.stack([t[0] for t in rest]).cpu().numpy()
+    if len(rest) != 64 or not np.array_equal(vals, np.arange(64)):
+        fail("feed_card_checks: the feed beside the capture lost batches")
+
+    # pin_memory stages into page-locked host memory
+    with gluon.data.DataLoader(
+            gluon.data.ArrayDataset(host[0].asnumpy(), host[1].numpy()),
+            batch_size=8, pin_memory=True) as loader:
+        px, py = next(iter(loader))
+    if not (px._data.is_pinned() and py._data.is_pinned()) or not \
+            torch.equal(px._data, host[0]._data[:8]):
+        fail("feed_card_checks: pin_memory batches are not page-locked "
+             "copies of the data")
+
+    # CUDA tensors in a dataset: fork workers refused
+    held = gluon.data.ArrayDataset(mx.nd.ones((8, 2), ctx=dev),
+                                   np.zeros(8, np.float32))
+    try:
+        gluon.data.DataLoader(held, batch_size=2, num_workers=2)
+        fail("feed_card_checks: a CUDA dataset took fork workers")
+    except mx.MXNetError:
+        pass
+
+    native_fields = {}
+    if native:
+        from mxnet_tpu_torch import recordio
+        from mxnet_tpu_torch.io.native_image_iter import NativeImageRecordIter
+        rec = workdir / "feed.rec"
+        it = NativeImageRecordIter(path_imgrec=str(rec),
+                                   data_shape=(3, FEED_SIDE, FEED_SIDE),
+                                   batch_size=RESNET_B)
+        batch = it.next().data[0].asnumpy()
+        r = recordio.MXRecordIO(str(rec), "r")
+        ref = np.stack([recordio.unpack_img(r.read())[1].transpose(2, 0, 1)
+                        for _ in range(RESNET_B)]).astype(np.float32)
+        r.close()
+        mean_gap = float(np.abs(batch.mean(axis=(1, 2, 3))
+                                - ref.mean(axis=(1, 2, 3))).max())
+        if mean_gap >= NATIVE_MEAN_BOUND:
+            fail("feed_card_checks: native and Python decodes differ by "
+                 "%.3g in an image's mean" % mean_gap)
+        native_fields = dict(native_vs_python_mean_gap=mean_gap,
+                             native_vs_python_max_abs=float(
+                                 np.abs(batch - ref).max()),
+                             mean_bound=NATIVE_MEAN_BOUND)
+    phase("feed_card_checks", staged_bitwise=True, fed_step_bitwise=True,
+          alloc_batches=ALLOC_BATCHES, alloc_depth=2, overwritten=overwritten,
+          control_without_record_stream_overwritten=control,
+          capture_beside_feed=caps["captures"],
+          staged_during_capture=during["staged"], pin_memory_pinned=True,
+          cuda_dataset_refused=True,
+          **native_fields, card='"%s"' % card)
+
+
+def write_mnist_idx(root, n, seed=0):
+    """``n`` seeded 28 x 28 digits and labels as MNIST's idx files: each
+    class a random template, each image its template plus noise (a set
+    LeNet can learn)."""
+    import struct
+
+    rng = np.random.RandomState(seed)
+    templates = rng.randint(0, 256, (10, 28, 28))
+    labels = rng.randint(0, 10, n)
+    images = np.clip(0.6 * templates[labels]
+                     + rng.randint(0, 102, (n, 28, 28)), 0, 255)
+    with open(root / "train-images-idx3-ubyte", "wb") as f:
+        f.write(struct.pack(">HBBIII", 0, 8, 3, n, 28, 28)
+                + images.astype(np.uint8).tobytes())
+    with open(root / "train-labels-idx1-ubyte", "wb") as f:
+        f.write(struct.pack(">HBBI", 0, 8, 1, n)
+                + labels.astype(np.uint8).tobytes())
+
+
+def mnist_idx(dev, card, workdir):
+    """Phase ``mnist_idx``: ``models/train_mnist.py --network lenet`` on the
+    card over idx files of MNIST_IDX_N seeded images: ``io.MNISTIter`` on
+    the host and ``Module.fit(prefetch_to_device=card)``, one epoch; its
+    images/s, final training accuracy, captures, and the first batch's
+    logits on the card against the CPU."""
+    import logging
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import train_mnist
+
+    root = workdir / "mnist"
+    root.mkdir()
+    write_mnist_idx(root, MNIST_IDX_N)
+    epoch_s = []
+
+    class EpochTime(logging.Handler):
+        def emit(self, record):
+            if record.msg.startswith("Epoch[%d] Time cost"):
+                epoch_s.append(record.args[1])
+    handler = EpochTime()
+    logging.getLogger().addHandler(handler)
+    try:
+        mx.random.seed(0)
+        mod = train_mnist.main(["--network", "lenet", "--num-epochs", "1",
+                                "--batch-size", str(MNIST_B),
+                                "--data-dir", str(root)])
+    finally:
+        logging.getLogger().removeHandler(handler)
+    steps = -(-MNIST_IDX_N // MNIST_B)
+    cache = mod._compiled_step.cache_stats()
+    if cache["misses"] != 1 or cache["hits"] != steps - 1:
+        fail("mnist_idx: captures after warm-up: %s" % cache)
+    if mod.feed_stats["batches"] != steps:
+        fail("mnist_idx: the feed staged %d of %d batches"
+             % (mod.feed_stats["batches"], steps))
+    acc = mod.last_score[0][1]
+
+    arg_params, aux_params = mod.get_params()
+    first = mx.io.MNISTIter(
+        image=str(root / "train-images-idx3-ubyte"),
+        label=str(root / "train-labels-idx1-ubyte"), batch_size=MNIST_B,
+        shuffle=False, ctx=mx.cpu()).next()
+    outs = {}
+    for where in (dev, mx.cpu()):
+        for name, symbol, labels in (
+                ("probs", mod.symbol, ["softmax_label"]),
+                ("logits", mod.symbol.get_internals()["fc2_output"], [])):
+            m = mx.mod.Module(symbol, label_names=labels, context=where)
+            m.bind(data_shapes=[("data", (MNIST_B, 1, 28, 28))],
+                   label_shapes=[(n, (MNIST_B,)) for n in labels],
+                   for_training=False)
+            m.set_params({k: v.as_in_context(where) for k, v in
+                          arg_params.items()},
+                         {k: v.as_in_context(where) for k, v in
+                          aux_params.items()}, allow_extra=True)
+            m.forward(mx.io.DataBatch(
+                data=[first.data[0].as_in_context(where)],
+                label=[first.label[0].as_in_context(where)][:len(labels)]),
+                is_train=False)
+            outs[name, str(where)] = m.get_outputs()[0].asnumpy()
+    # the module's outputs at tests/test_torch_module.py's bound for one set
+    # of weights; the logits beside them, against each row's largest
+    probs, cpu_probs = outs["probs", str(dev)], outs["probs", "cpu"]
+    err = np.abs(probs - cpu_probs)
+    if not np.all(err <= MNIST_IDX_ATOL + MNIST_IDX_RTOL
+                  * np.abs(cpu_probs)):
+        fail("mnist_idx: outputs on the card vs the CPU: max abs %.3g"
+             % err.max())
+    logits, cpu_logits = outs["logits", str(dev)], outs["logits", "cpu"]
+    logit_err = np.abs(logits - cpu_logits)
+    scale = np.abs(cpu_logits).max(axis=1, keepdims=True)
+    if not np.all(logit_err <= MNIST_IDX_RTOL * scale):
+        fail("mnist_idx: logits on the card vs the CPU: %.3g of the row's "
+             "largest" % (logit_err / scale).max())
+    phase("mnist_idx", network="lenet", images=MNIST_IDX_N, batch=MNIST_B,
+          steps=steps, epoch_s=epoch_s[0] if epoch_s else None,
+          imgs_per_s=MNIST_IDX_N / epoch_s[0] if epoch_s else None,
+          train_accuracy=acc, captures=cache["misses"], hits=cache["hits"],
+          feed_h2d_ms=mod.feed_stats["h2d_ms"],
+          feed_starved_ms=mod.feed_stats["starved_ms"],
+          outputs_vs_cpu_max_abs=float(err.max()),
+          logits_vs_cpu_max_abs=float(logit_err.max()),
+          logits_vs_cpu_of_row_max=float((logit_err / scale).max()),
+          rtol=MNIST_IDX_RTOL, atol=MNIST_IDX_ATOL, card='"%s"' % card)
+
+
+def input_phases(cuda_ops, dev, card):
+    """The input pipeline: the probe, ``feed_resnet50``,
+    ``feed_card_checks`` and ``mnist_idx``.  Returns the kernel's launches
+    there (0: no attention on these paths)."""
+    import tempfile
+
+    seconds = {}
+    reset_launches(cuda_ops)
+    pil, native = input_probe()
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in (feed_resnet50, feed_card_checks):
+            t0 = time.time()
+            fn(dev, card, Path(tmp), native)
+            seconds[fn.__name__] = round(time.time() - t0, 2)
+        t0 = time.time()
+        mnist_idx(dev, card, Path(tmp))
+        seconds["mnist_idx"] = round(time.time() - t0, 2)
+    phase("input_seconds", **seconds)
+    if cuda_ops.flash_attention.launches:
+        fail("the input phases launched flash_attention %d times"
+             % cuda_ops.flash_attention.launches)
+    return cuda_ops.flash_attention.launches
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -6133,6 +6871,7 @@ def main():
     launches_word_lm = random_zoo_phases(cuda_ops, dev, smi)
     launches_optim = optim_resume_phases(cuda_ops, dev, smi)
     launches_int8 = int8_phases(cuda_ops, dev, smi)
+    launches_input = input_phases(cuda_ops, dev, smi)
 
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -6140,7 +6879,8 @@ def main():
               "launches": launches_serve + launches_train
               + launches_train_bf16 + launches_nd + launches_functional
               + launches_hybrid + launches_exported + launches_fleet
-              + launches_word_lm + launches_optim + launches_int8,
+              + launches_word_lm + launches_optim + launches_int8
+              + launches_input,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
               "launches_hybrid_train": launches_hybrid,
@@ -6152,7 +6892,8 @@ def main():
               "launches_fleet": launches_fleet,
               "launches_word_lm": launches_word_lm,
               "launches_optim": launches_optim,
-              "launches_int8": launches_int8}
+              "launches_int8": launches_int8,
+              "launches_input": launches_input}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

@@ -26,21 +26,25 @@ the executor, ``mod.Module`` and ``callback``; and ``random``'s draws on
 the card (``Dropout``, ``nd.random``), the rest of Gluon's layers and
 losses, and the vision model zoo; and int8 inference
 (``contrib.quantization.quantize_model`` and the quantized ops, their
-products in cuBLASLt's int8 GEMM on the card).
+products in cuBLASLt's int8 GEMM on the card); and the input pipeline:
+``recordio``, the native decode library (``_native``), ``io``'s
+iterators and ``DeviceFeed`` (batches staged on the card from a CUDA side
+stream), ``gluon.data`` and ``image``.
 """
 from . import autograd, callback, initializer, io, metric, ndarray, random
 from . import lr_scheduler, model, module, optimizer, symbol
-from . import contrib, gluon
+from . import contrib, gluon, image, recordio
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
 from .attribute import AttrScope
 from .base import MXNetError
-from .context import cpu, current_context, gpu, tpu
+from .context import cpu, cpu_pinned, current_context, gpu, tpu
 
 init = initializer   # mx.init.Xavier()
 
-__all__ = ["MXNetError", "cpu", "gpu", "tpu", "current_context", "metric",
-           "nd", "ndarray", "autograd", "random", "initializer", "init",
-           "io", "sym", "symbol", "mod", "module", "callback", "model",
-           "optimizer", "lr_scheduler", "AttrScope", "gluon", "contrib"]
+__all__ = ["MXNetError", "cpu", "cpu_pinned", "gpu", "tpu",
+           "current_context", "metric", "nd", "ndarray", "autograd",
+           "random", "initializer", "init", "io", "sym", "symbol", "mod",
+           "module", "callback", "model", "optimizer", "lr_scheduler",
+           "AttrScope", "gluon", "contrib", "image", "recordio"]

@@ -8,6 +8,8 @@ type, which this package recognises by name and never imports.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -55,6 +57,12 @@ def as_dtype(dtype):
     if name not in _DTYPES:
         raise TypeError("dtype %r is not one of %s" % (dtype, sorted(_DTYPES)))
     return _DTYPES[name]
+
+
+def data_dir():
+    """The datasets' default root: ``$MXNET_HOME``, else ``~/.mxnet``."""
+    return os.environ.get("MXNET_HOME",
+                          os.path.join(os.path.expanduser("~"), ".mxnet"))
 
 
 def tensor_from_numpy(array):

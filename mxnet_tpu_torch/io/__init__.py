@@ -1,5 +1,10 @@
-"""Data iterators (counterpart of ``mxnet_tpu/io``): the in-memory
-iterator ported so far."""
-from .io import DataBatch, DataDesc, DataIter, NDArrayIter
+"""Data iterators and the device feed (counterpart of ``mxnet_tpu/io``)."""
+from .io import (DataBatch, DataDesc, DataIter, ResizeIter, PrefetchingIter,
+                 NDArrayIter, CSVIter, MNISTIter, ImageRecordIter,
+                 LibSVMIter, DataLoaderIter)
+from .device_feed import DeviceFeed, stage_batch
 
-__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter"]
+__all__ = ["DataBatch", "DataDesc", "DataIter", "ResizeIter",
+           "PrefetchingIter", "NDArrayIter", "CSVIter", "MNISTIter",
+           "ImageRecordIter", "LibSVMIter", "DataLoaderIter", "DeviceFeed",
+           "stage_batch"]

@@ -5,7 +5,7 @@
 
 Only what ``Module`` needs on one device.  No kvstore exists on one device
 (``_create_kvstore`` gives ``None``, as the JAX package's does there); a
-``dist`` store, or a ``KVStore`` object, raises until ROADMAP queue 1 #13
+``dist`` store, or a ``KVStore`` object, raises until ROADMAP queue 1 #8
 ports ``kvstore.py``.  A checkpoint is ``prefix-symbol.json`` and
 ``prefix-%04d.params`` with ``arg:``/``aux:`` keys, in the bytes both
 packages read (``nd.save``).
@@ -43,7 +43,7 @@ def _create_kvstore(kvstore, num_device, arg_params):
             return (None, False)
     raise MXNetError(
         "kvstore %r needs a KVStore, which is not ported yet (ROADMAP "
-        "queue 1 #13); train on one device with kvstore='local' or None"
+        "queue 1 #8); train on one device with kvstore='local' or None"
         % (kvstore,))
 
 
@@ -53,7 +53,7 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
     updater takes the arrays' tensors and updates them in place."""
     if kvstore:
         raise MXNetError("kvstore updates are not ported yet (ROADMAP queue "
-                         "1 #13)")
+                         "1 #8)")
     for i, (arg_list, grad_list) in enumerate(zip(param_arrays, grad_arrays)):
         if grad_list[0] is None:
             continue

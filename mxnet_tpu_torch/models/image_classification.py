@@ -30,14 +30,20 @@ JAX ``BatchNorm.cast`` keeps fp32 only for float16) and each batch's
 data before its forward; the labels stay fp32.  SGD then updates the
 bf16 weights directly, with bf16 momentum: the example leaves
 ``multi_precision`` at False.
-Not ported yet: ``--data-train`` (``ImageRecordIter``), the fused step
-(``--fused-step 1``), ``net.hybridize()`` (CachedOp) and
-``--model-prefix`` (``export``).
+``--data-train FILE.rec`` trains from a RecordIO file instead, read as
+``train_imagenet.py:45-49`` reads it: ``io.ImageRecordIter(...,
+shuffle=True, rand_crop=True, rand_mirror=True)`` (the Python backend:
+decode and augmentation on the host), behind an
+``io.PrefetchingIter(ctx=device)`` whose feed thread decodes ahead and
+stages each batch on the device.  Without the file it warns and trains on
+the synthetic set.  Not ported yet: the fused step (``--fused-step 1``),
+``net.hybridize()`` (CachedOp) and ``--model-prefix`` (``export``).
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 
@@ -50,11 +56,11 @@ from ..context import resolve_device
 from ..gluon import Trainer
 from ..gluon.loss import SoftmaxCrossEntropyLoss
 from ..gluon.model_zoo import vision
-from ..io import NDArrayIter
+from ..io import ImageRecordIter, NDArrayIter, PrefetchingIter
 from ..metric import Accuracy
 
-__all__ = ["add_fit_args", "get_synthetic_iter", "train_step", "fit_gluon",
-           "main"]
+__all__ = ["add_fit_args", "get_synthetic_iter", "get_rec_iter",
+           "train_step", "fit_gluon", "main"]
 
 
 def add_fit_args(parser):
@@ -100,6 +106,15 @@ def train_step(net, trainer, loss_fn, metric, x, y, batch_size):
     return loss
 
 
+def get_rec_iter(args, image_shape, device=None):
+    """``train_imagenet.py``'s iterator over ``args.data_train`` behind a
+    ``PrefetchingIter`` that stages its batches on ``device``."""
+    it = ImageRecordIter(path_imgrec=args.data_train, data_shape=image_shape,
+                         batch_size=args.batch_size, shuffle=True,
+                         rand_crop=True, rand_mirror=True)
+    return PrefetchingIter(it, ctx=resolve_device(device))
+
+
 def fit_gluon(args, net, train_iter):
     """``common.py``'s loop: initialize ``net`` (Xavier), fill its deferred
     shapes with one batch, ``reset`` the iterator, cast to ``args.dtype``,
@@ -143,6 +158,9 @@ def main(argv=None):
         description=__doc__.split("\n\n")[0]))
     parser.add_argument("--image-shape", type=str, default="3,224,224")
     parser.add_argument("--device", default="cuda:0")
+    parser.add_argument("--data-train", type=str, default=None,
+                        help="a RecordIO file to train from (synthetic "
+                             "data if absent)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
@@ -150,7 +168,13 @@ def main(argv=None):
     image_shape = tuple(int(x) for x in args.image_shape.split(","))
     net = vision.get_model(args.network, classes=args.num_classes,
                            device=device)
-    train_iter = get_synthetic_iter(args, image_shape, device)
+    if args.data_train and os.path.exists(args.data_train):
+        train_iter = get_rec_iter(args, image_shape, device)
+    else:
+        if args.data_train:
+            logging.warning("--data-train %s not found; using synthetic "
+                            "data", args.data_train)
+        train_iter = get_synthetic_iter(args, image_shape, device)
     return fit_gluon(args, net, train_iter)
 
 

@@ -3,13 +3,16 @@
 
 The same symbols (:18-42), ``Module.fit`` with SGD and Xavier,
 ``callback.Speedometer`` every 50 batches and, with ``--model-prefix``,
-``callback.do_checkpoint`` at each epoch's end.  Without staged MNIST files
-it trains on the example's synthetic set (2048 uniform images and random
-labels from ``RandomState(0)``, shuffled by ``NDArrayIter``); reading staged
-MNIST (``io.MNISTIter``) is not ported yet (ROADMAP queue 1 #12).  On the
-card by default; ``--device cpu`` trains on the CPU.  ``--compiled``
-chooses ``fit``'s path: ``auto`` (default) the compiled train step, ``0``
-the eager loop.
+``callback.do_checkpoint`` at each epoch's end.  Staged MNIST idx files
+under ``--data-dir`` (``train-images-idx3-ubyte[.gz]``,
+``train-labels-idx1-ubyte[.gz]``) are read by ``io.MNISTIter`` on the host
+and fed through ``fit(prefetch_to_device=...)``: a ``DeviceFeed`` stages
+each batch on the training device ahead of the step.  Without them it
+trains on the example's synthetic set (2048 uniform images and random
+labels from ``RandomState(0)``, shuffled by ``NDArrayIter`` on the
+device).  On the card by default; ``--device cpu`` trains on the CPU.
+``--compiled`` chooses ``fit``'s path: ``auto`` (default) the compiled
+train step, ``0`` the eager loop.
 
     python -m mxnet_tpu_torch.models.train_mnist --network lenet
     python -m mxnet_tpu_torch.models.train_mnist --device cpu --num-epochs 1
@@ -28,8 +31,7 @@ import numpy as np
 
 from .. import callback, init, io, mod as mod_pkg
 from .. import symbol as sym
-from ..base import MXNetError
-from ..context import resolve_device
+from ..context import cpu, resolve_device
 
 __all__ = ["get_mlp", "get_lenet", "get_mnist_iters", "main"]
 
@@ -60,14 +62,24 @@ def get_lenet():
     return sym.SoftmaxOutput(fc2, name="softmax")
 
 
+def _staged(data_dir, name):
+    """The staged idx file ``name`` (gzipped or not), or None."""
+    path = os.path.join(data_dir, name)
+    for p in (path + ".gz", path):
+        if os.path.exists(p):
+            return p
+    return None
+
+
 def get_mnist_iters(batch_size, data_dir, ctx=None, shuffle=True):
-    """(train iterator, None): the example's synthetic digits on ``ctx``
-    when no MNIST files are staged under ``data_dir``."""
-    img = os.path.join(data_dir, "train-images-idx3-ubyte.gz")
-    if os.path.exists(img) or os.path.exists(img[:-3]):
-        raise MXNetError("reading staged MNIST (io.MNISTIter) is not ported "
-                         "yet (ROADMAP queue 1 #12); move %s aside to train "
-                         "on the synthetic set" % data_dir)
+    """(train iterator, None): ``io.MNISTIter`` over the idx files staged
+    under ``data_dir``, on the CPU (for a feed to stage), or else the
+    example's synthetic digits in an ``NDArrayIter`` on ``ctx``."""
+    img = _staged(data_dir, "train-images-idx3-ubyte")
+    lbl = _staged(data_dir, "train-labels-idx1-ubyte")
+    if img is not None and lbl is not None:
+        return io.MNISTIter(image=img, label=lbl, batch_size=batch_size,
+                            shuffle=shuffle, ctx=cpu()), None
     logging.warning("MNIST files not staged under %s; using synthetic data",
                     data_dir)
     rng = np.random.RandomState(0)
@@ -103,8 +115,11 @@ def main(argv=None):
     cb = [callback.Speedometer(args.batch_size, 50)]
     epoch_cb = callback.do_checkpoint(args.model_prefix) \
         if args.model_prefix else None
+    # files read on the host reach the device through the feed
+    on_host = isinstance(train, io.MNISTIter)
     mod.fit(train, eval_data=val, num_epoch=args.num_epochs,
             kvstore=args.kv_store, optimizer="sgd",
+            prefetch_to_device=device if on_host else None,
             optimizer_params={"learning_rate": args.lr},
             initializer=init.Xavier(), batch_end_callback=cb,
             epoch_end_callback=epoch_cb,

@@ -8,10 +8,12 @@ trains through one ``CompiledTrainStep`` (one CUDA graph a window on the
 card) unless the configuration is one the capture cannot express, where it
 falls back to the eager loop with a one-line warning, as the JAX package
 does.  ``fit(resume_from=, auto_resume=)`` restores the newest checkpoint
-that the manifest committed (crash recovery, docs/ROBUSTNESS.md).  The ZeRO
-update (``shard_update``, ``wire_format``), the device feed
-(``prefetch_to_device``) and monitors are not ported yet and raise,
-naming the ROADMAP item that brings them.
+that the manifest committed (crash recovery, docs/ROBUSTNESS.md).
+``fit(prefetch_to_device=ctx)`` reads each epoch through an
+``io.DeviceFeed`` that stages the batches on ``ctx`` ahead of the step
+(its totals land in ``feed_stats``).  The ZeRO update (``shard_update``,
+``wire_format``) and monitors are not ported yet and raise, naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -181,12 +183,17 @@ class BaseModule:
         ``auto_resume=True`` resumes when a complete checkpoint exists and
         starts fresh otherwise; without ``resume_from`` it takes the prefix
         from a ``do_checkpoint``/``module_checkpoint`` epoch callback (their
-        ``checkpoint_prefix``)."""
+        ``checkpoint_prefix``).
+
+        ``prefetch_to_device=ctx`` reads each epoch through a fresh
+        ``io.DeviceFeed`` over ``train_data``: a thread runs the iterator
+        and stages each batch on ``ctx`` (pinned memory, a copy on the
+        feed's CUDA stream) up to two batches ahead; ``self.feed_stats``
+        holds the last epoch's ``DeviceFeed.stats()``."""
         assert num_epoch is not None, "please specify number of epochs"
         for flag, value, item in (
                 ("shard_update", shard_update, "queue 1 #8"),
                 ("wire_format", wire_format, "queue 1 #8"),
-                ("prefetch_to_device", prefetch_to_device, "queue 1 #6"),
                 ("monitor", monitor, "queue 1 #9"),
                 ("sparse_row_id_fn", sparse_row_id_fn, "queue 1 #9")):
             if value:
@@ -272,31 +279,45 @@ class BaseModule:
             tic = time.time()
             eval_metric.reset()
             eval_name_vals = []
-            batches = iter(train_data)
-            if compiled_step is not None:
-                nbatch, eval_name_vals = self._fit_compiled_epoch(
-                    compiled_step, batches, eval_metric, epoch,
-                    batch_end_callback, metric_interval)
-                data_batch = _NO_BATCH
+            feed = None
+            if prefetch_to_device is not None:
+                from ..io.device_feed import DeviceFeed
+                feed = DeviceFeed(train_data, ctx=prefetch_to_device,
+                                  name="fit")
+                batches = iter(feed)
             else:
-                data_batch = next(batches, _NO_BATCH)
-                nbatch = 0
-            while data_batch is not _NO_BATCH:
-                self.forward_backward(data_batch)
-                self.update()
-                self._metric_from_batch(eval_metric, data_batch)
-                # fetch the next batch only after training on this one: an
-                # iterator may reuse the previous batch's buffers
-                upcoming = next(batches, _NO_BATCH)
-                if upcoming is _NO_BATCH:
-                    # snapshot before callbacks may auto-reset the metric
-                    eval_name_vals = eval_metric.get_name_value()
-                _fire(batch_end_callback,
-                      BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                    eval_metric=eval_metric,
-                                    locals=locals()))
-                data_batch = upcoming
-                nbatch += 1
+                batches = iter(train_data)
+            try:
+                if compiled_step is not None:
+                    nbatch, eval_name_vals = self._fit_compiled_epoch(
+                        compiled_step, batches, eval_metric, epoch,
+                        batch_end_callback, metric_interval)
+                    data_batch = _NO_BATCH
+                else:
+                    data_batch = next(batches, _NO_BATCH)
+                    nbatch = 0
+                while data_batch is not _NO_BATCH:
+                    self.forward_backward(data_batch)
+                    self.update()
+                    self._metric_from_batch(eval_metric, data_batch)
+                    # fetch the next batch only after training on this one:
+                    # an iterator may reuse the previous batch's buffers (a
+                    # feed's batches are copies, staged before the source
+                    # moves on)
+                    upcoming = next(batches, _NO_BATCH)
+                    if upcoming is _NO_BATCH:
+                        # snapshot before callbacks may auto-reset the metric
+                        eval_name_vals = eval_metric.get_name_value()
+                    _fire(batch_end_callback,
+                          BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                        eval_metric=eval_metric,
+                                        locals=locals()))
+                    data_batch = upcoming
+                    nbatch += 1
+            finally:
+                if feed is not None:
+                    self.feed_stats = feed.stats()
+                    feed.close()
             for name, val in eval_name_vals:
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             toc = time.time()

@@ -4,7 +4,7 @@ bind, and the batch's scatter to them and the outputs' gather.
 
 The port binds one device: the group holds one executor, over arrays made
 by shape inference.  Several contexts raise (``Module`` checks them); the
-data-parallel route is ROADMAP queue 1 #13.  A batch is copied into the
+data-parallel route is ROADMAP queue 1 #8.  A batch is copied into the
 executor's argument arrays in place (``executor.write_into``), so the
 arrays a captured graph reads keep their storage.
 """
@@ -27,7 +27,7 @@ class DataParallelExecutorGroup:
                  grad_req="write", state_names=None, group2ctxs=None):
         if len(contexts) != 1:
             raise MXNetError("binding over %d contexts is not ported yet "
-                             "(ROADMAP queue 1 #13); bind one device"
+                             "(ROADMAP queue 1 #8); bind one device"
                              % len(contexts))
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()

@@ -39,7 +39,7 @@ class Module(BaseModule):
                           else [ctxs])]
         if len(self._context) != 1:
             raise MXNetError("Module over %d contexts is not ported yet "
-                             "(ROADMAP queue 1 #13); pass one context"
+                             "(ROADMAP queue 1 #8); pass one context"
                              % len(self._context))
         if group2ctxs or state_names:
             raise MXNetError("group2ctxs and state_names are not ported yet")

@@ -49,7 +49,7 @@ __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
 _TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                  "bfloat16": torch.bfloat16, "uint8": torch.uint8,
                  "int8": torch.int8, "int32": torch.int32,
-                 "bool": torch.bool}
+                 "uint32": torch.uint32, "bool": torch.bool}
 # the JAX package runs without x64
 _NARROW = {"float64": "float32", "int64": "int32"}
 _NUMPY_DTYPES = {t: (n if n == "bfloat16" else np.dtype(n))
@@ -178,7 +178,11 @@ class NDArray:
 
     @property
     def dtype(self):
-        return _NUMPY_DTYPES[self._data.dtype]
+        dtype = self._data.dtype
+        if dtype in _NUMPY_DTYPES:
+            return _NUMPY_DTYPES[dtype]
+        # a type the port's NDArrays do not make (a torch op's int64, say)
+        return np.dtype(str(dtype)[len("torch."):])
 
     @property
     def size(self):

@@ -13,6 +13,10 @@ on shape (2, 3, 4) reduces axes 0 and 1 and gives shape (4,), as MXNet and
 numpy do.  The JAX package compares the raw axis with ``range(ndim)``
 (``mxnet_tpu/ops/reduce_ops.py:33-36``), so it reduces every axis there.
 Non-negative axes agree.
+
+Integer and bool inputs sum and multiply as the JAX package's do without
+x64: into int32, or uint32 for an unsigned input, wrapping as XLA's
+integer arithmetic wraps (``_integral``).
 """
 from __future__ import annotations
 
@@ -58,14 +62,30 @@ def _nanprod(x, dim):
     return torch.where(torch.isnan(x), torch.ones_like(x), x).prod(dim)
 
 
+def _integral(fn):
+    """``fn`` with ``jnp.sum``'s and ``jnp.prod``'s result types for an
+    integer or bool input: int32, uint32 for an unsigned one.  The work runs
+    in int64 (torch's default for them, modular past its range) and the
+    result keeps its low 32 bits, which modular arithmetic makes the same
+    as XLA's wrapped int32 or uint32 in any order of the sum."""
+    def reduce(x, d, k):
+        if x.is_floating_point() or x.is_complex():
+            return fn(x, d, k)
+        out = fn(x.to(torch.int64), d, k)
+        if x.dtype in (torch.uint8, torch.uint16, torch.uint32):
+            return (out & 0xFFFFFFFF).to(torch.uint32)
+        return out.to(torch.int32)
+    return reduce
+
+
 _REDUCE = {
-    "sum": lambda x, d, k: torch.sum(x, dim=d, keepdim=k),
+    "sum": _integral(lambda x, d, k: torch.sum(x, dim=d, keepdim=k)),
     "mean": lambda x, d, k: torch.mean(
         x if x.is_floating_point() else x.to(torch.float32), dim=d,
         keepdim=k),
-    "prod": _over(torch.prod),
-    "nansum": lambda x, d, k: torch.nansum(x, dim=d, keepdim=k),
-    "nanprod": _over(_nanprod),
+    "prod": _integral(_over(torch.prod)),
+    "nansum": _integral(lambda x, d, k: torch.nansum(x, dim=d, keepdim=k)),
+    "nanprod": _integral(_over(_nanprod)),
     "max": lambda x, d, k: torch.amax(x, dim=d, keepdim=k),
     "min": lambda x, d, k: torch.amin(x, dim=d, keepdim=k),
 }

@@ -32,6 +32,8 @@ which flip an ascending one, as there).
 """
 from __future__ import annotations
 
+import numbers
+
 import torch
 import torch.nn.functional as F
 
@@ -480,10 +482,15 @@ alias("pad", "Pad")
 
 @register("clip")
 def _clip(attrs, x):
-    """``jnp.clip(x, a_min, a_max)``: either bound may be absent."""
-    lo, hi = attrs.get("a_min"), attrs.get("a_max")
-    return torch.clamp(x, None if lo is None else float(lo),
-                       None if hi is None else float(hi))
+    """``jnp.clip(x, a_min, a_max)``: either bound may be absent.  As
+    there, an integer array keeps its dtype under integer bounds and
+    becomes float32 under a float one (a weak-typed Python float)."""
+    bounds = [b if b is None or isinstance(b, numbers.Integral)
+              else float(b) for b in (attrs.get("a_min"), attrs.get("a_max"))]
+    if not x.is_floating_point() and any(isinstance(b, float)
+                                         for b in bounds):
+        x = x.to(torch.float32)
+    return torch.clamp(x, *bounds)
 
 
 @register("where")

@@ -612,3 +612,43 @@ def test_positional_attributes_are_the_jax_packages():
         got = getattr(tmx.nd, name)(tmx.nd.array(x, ctx=tmx.cpu()),
                                     *args).asnumpy()
         np.testing.assert_allclose(got, want, **ELEM)
+
+
+_INT_INPUTS = {
+    "int32": np.array([[2 ** 30, 2 ** 30, 2 ** 30], [-7, 3, 2 ** 20]]),
+    "uint8": np.array([[200, 200, 255], [3, 0, 17]]),
+    "int8": np.array([[127, 127, -128], [-5, 9, 100]]),
+    "bool": np.array([[1, 0, 1], [1, 1, 1]]),
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(_INT_INPUTS))
+@pytest.mark.parametrize("op", ["sum", "prod", "nansum", "nanprod",
+                                "sum_axis"])
+def test_integer_reductions_keep_the_jax_dtypes(op, dtype):
+    """Integer and bool sums and products give int32 (uint32 for an
+    unsigned input), wrapping as XLA's integer arithmetic does:
+    ``[2**30] * 3`` sums to -2**30.  ``.dtype`` reads on every result."""
+    a = _INT_INPUTS[dtype]
+    for kwargs in ({}, {"axis": 1}, {"axis": 0, "keepdims": True}):
+        want = getattr(jmx.nd, op)(jmx.nd.array(a, dtype=dtype), **kwargs)
+        got = getattr(tmx.nd, op)(tmx.nd.array(a, ctx=tmx.cpu(),
+                                               dtype=dtype), **kwargs)
+        assert got.dtype == want.dtype, (kwargs, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+    x = tmx.nd.array(a, ctx=tmx.cpu(), dtype=dtype)
+    if op == "sum":
+        assert x.sum().dtype == jmx.nd.array(a, dtype=dtype).sum().dtype
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint8"])
+def test_clip_keeps_an_integer_dtype(dtype):
+    """``jnp.clip``: integer bounds keep the input's dtype; a float bound
+    promotes to float32."""
+    a = np.array([1, 5, 9, 200])
+    for bounds in ((2, 7), (0, None), (2.5, 7.5)):
+        want = jmx.nd.clip(jmx.nd.array(a, dtype=dtype), *bounds)
+        got = tmx.nd.clip(tmx.nd.array(a, ctx=tmx.cpu(), dtype=dtype),
+                          *bounds)
+        assert got.dtype == want.dtype, (bounds, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
