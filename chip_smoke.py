@@ -100,7 +100,17 @@ without it, a CachedOp capture during which the feed thread stages
 batches, a CUDA dataset
 refused by worker processes, native decode against PIL's); and
 ``train_mnist.py`` over 60,000 seeded idx images through ``MNISTIter``
-and the feed (``mnist_idx``).  No hand kernel runs there either.
+and the feed (``mnist_idx``).  No hand kernel runs there either.  Last,
+the recurrent models (``rnn_phases``): ``models/lstm_bucketing.py`` at the
+upstream example's widths (2 x 200 LSTM, embed 200, vocab 10,000, B = 32,
+buckets 10-60) through ``BucketingModule.fit``, over the ``RNN`` op
+(``lstm_bucketing``) and over ``LSTMCell``s (``lstm_bucketing_unfused``),
+with the step of each bucket, launches a step and peak memory; the ``RNN``
+op's four modes and its dropout masks card against CPU, and the first
+bucketing updates (``rnn_vs_cpu``); and ``gluon.rnn.LSTM`` eager and
+hybridized beside ``torch.nn.LSTM`` on the same weights (``gluon_lstm``).
+The reference's RNN is a ``lax.scan`` of jnp ops, not a Pallas kernel:
+flash_attention launches 0 times there (``launches_rnn``).
 
     python3 chip_smoke.py
 
@@ -1983,6 +1993,19 @@ def nd_cases_int8_slice(f, rng):
         ("_contrib_quantized_pooling", [q8] + rd[:2],
          {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)}, [], exact),
     ]
+    # the recurrent op at LSTM-PTB's widths (2 x 200, B 32, the word LM's
+    # T 35), dropout between the layers in training, and its begin state
+    H = LSTM_PTB["num_hidden"]
+    blob = 2 * 4 * H * (H + H) + 2 * 2 * 4 * H
+    seq = f(35, 32, H, low=-1.0, high=1.0)
+    cases += [("RNN", [seq, f(blob, low=-0.07, high=0.07),
+                       f(2, 32, H, low=-0.5, high=0.5),
+                       f(2, 32, H, low=-0.5, high=0.5)],
+               {"state_size": H, "num_layers": 2, "mode": "lstm",
+                "state_outputs": True, "p": 0.2, "_training": True},
+               [0, 1, 2, 3], gemm),
+              ("_rnn_state_like", [seq], {"shape": (2, 0, H),
+                                          "ref_axis": 1}, [], exact)]
     return cases
 
 
@@ -6791,6 +6814,431 @@ def input_phases(cuda_ops, dev, card):
     return cuda_ops.flash_attention.launches
 
 
+# ---------------------------------------------------------------------------
+# recurrent models: the bucketed LSTM-PTB language model through
+# BucketingModule.fit (fused and unfused), the RNN op on the card against
+# the CPU, and Gluon's LSTM eager and hybridized
+
+LSTM_PTB = dict(num_layers=2, num_hidden=200, num_embed=200,
+                vocab_size=10000, batch_size=32)
+LSTM_BUCKETS = (10, 20, 30, 40, 50, 60)
+LSTM_BATCHES_PER_BUCKET = 4
+# the example's tokens are uniform at random: the next token cannot be
+# predicted, only the 24 batches memorized, which 2 epochs do not show
+# (fused: 10,064.9 then 10,363.1 on an H100) and 12 do
+LSTM_EPOCHS = 12
+RNN_RTOL, RNN_ATOL = 1e-4, 1e-5     # tests/test_rnn.py:129
+RNN_VS_CPU = (12, 8, 64, 64)        # T, B, input and hidden width, 2 layers
+RNN_WEIGHT = 0.07                   # the blob's scale: FusedRNN's default
+RNN_VS_CPU_UPDATES = 3              # Uniform(0.07)
+# Adam moves a weight by lr * m / (sqrt(v) + 1e-8): where every rescaled
+# gradient of both runs is within ADAM_TIE of 0 but not 0 (a sum that
+# cancels), the rounding of the sum, which differs between the card and
+# the CPU, sets the step; those elements are counted, not compared
+ADAM_TIE = 1e-7
+GLUON_LSTM = (35, 32, 200, 2, 0.2)  # T, B, hidden (= input), layers, dropout
+GLUON_LSTM_STEPS = 12
+
+
+def lstm_bucketing_argv(fused):
+    w = LSTM_PTB
+    return ["--num-layers", str(w["num_layers"]),
+            "--num-hidden", str(w["num_hidden"]),
+            "--num-embed", str(w["num_embed"]),
+            "--vocab-size", str(w["vocab_size"]),
+            "--batch-size", str(w["batch_size"]),
+            "--buckets", ",".join(str(b) for b in LSTM_BUCKETS),
+            "--batches-per-bucket", str(LSTM_BATCHES_PER_BUCKET),
+            "--num-epochs", str(LSTM_EPOCHS), "--fused", str(int(fused))]
+
+
+class StepMarks:
+    """A batch-end callback of ``fit``: a CUDA event and the host's clock
+    at each batch's end, with the batch's bucket and the number of bound
+    buckets.  The span between two marks is one step: the batch's forward,
+    backward and update, the metric, and the next batch's fetch and
+    ``prepare`` (which binds a bucket's module the first time it comes)."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((ev, time.perf_counter(),
+                           param.locals["data_batch"].bucket_key,
+                           len(param.locals["self"]._buckets)))
+
+    def steps(self):
+        """{bucket: [(device ms, host ms)]} of the steps after a bucket's
+        first (its capture) in which no module was bound."""
+        torch.cuda.synchronize()
+        seen, out = set(), {}
+        for prev, cur in zip(self.marks, self.marks[1:]):
+            bucket = cur[2]
+            first = bucket not in seen
+            seen.add(bucket)
+            if first or cur[3] != prev[3]:
+                continue
+            out.setdefault(bucket, []).append(
+                (prev[0].elapsed_time(cur[0]), (cur[1] - prev[1]) * 1e3))
+        return out
+
+
+def lstm_bucketing(dev, card, fused):
+    """Phase ``lstm_bucketing`` (the ``RNN`` op, ``FusedRNNCell``) or
+    ``lstm_bucketing_unfused`` (``LSTMCell``s): ``models/lstm_bucketing
+    .main`` at the upstream example's widths (2 x 200, embed 200, vocab
+    10,000, B = 32, buckets 10-60), BucketSeqIter's LSTM_BATCHES_PER_BUCKET
+    batches a bucket, LSTM_EPOCHS epochs, Adam at lr 0.01.  One bound
+    module a bucket; perplexity must fall.  Per bucket, the median step
+    (CUDA events) and tokens/s; one step of the longest bucket profiled
+    (kernels launched, device ms) against its host ms; peak memory."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import lstm_bucketing as lb
+
+    label = "lstm_bucketing" if fused else "lstm_bucketing_unfused"
+    mx.random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    marks = StepMarks()
+    t0 = time.time()
+    mod = lb.main(lstm_bucketing_argv(fused), batch_end_callback=marks)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    ppl = mod.epoch_perplexity
+    if len(mod._buckets) != len(LSTM_BUCKETS):
+        fail("%s: %d bound modules for %d buckets" % (
+            label, len(mod._buckets), len(LSTM_BUCKETS)))
+    if not (np.isfinite(ppl).all() and ppl[-1] < ppl[0]):
+        fail("%s: perplexity did not fall: %s" % (label, ppl))
+    steps = marks.steps()
+    B = LSTM_PTB["batch_size"]
+    per_bucket = {}
+    for bucket in LSTM_BUCKETS:
+        dev_ms = float(np.median([d for d, _ in steps[bucket]]))
+        host_ms = float(np.median([h for _, h in steps[bucket]]))
+        per_bucket[bucket] = (dev_ms, host_ms, B * bucket / dev_ms * 1e3)
+    # one step of the longest bucket, profiled and timed on the host
+    it = lb.BucketSeqIter([max(LSTM_BUCKETS)], B, LSTM_PTB["vocab_size"], 1,
+                          seed=1, ctx=dev)
+    batch = next(iter(it))
+
+    def step():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t1) * 1e3
+    device_ms, kernels = device_profile(step)
+    peak = torch.cuda.max_memory_allocated(dev)
+    phase(label, layers=LSTM_PTB["num_layers"],
+          hidden=LSTM_PTB["num_hidden"], embed=LSTM_PTB["num_embed"],
+          vocab=LSTM_PTB["vocab_size"], batch=B,
+          buckets=",".join(str(b) for b in LSTM_BUCKETS),
+          batches_per_bucket=LSTM_BATCHES_PER_BUCKET, epochs=LSTM_EPOCHS,
+          bound_modules=len(mod._buckets),
+          perplexity_first=round(ppl[0], 3), perplexity_last=round(ppl[-1], 3),
+          fit_s=round(fit_s, 2), compiled_step=mod._compiled_step is not None,
+          **{"step_ms_%d" % b: round(v[0], 3)
+             for b, v in per_bucket.items()},
+          **{"host_ms_%d" % b: round(v[1], 3)
+             for b, v in per_bucket.items()},
+          **{"tokens_s_%d" % b: round(v[2], 1)
+             for b, v in per_bucket.items()},
+          profiled_bucket=max(LSTM_BUCKETS), step_host_ms=round(host_ms, 3),
+          step_device_ms=round(device_ms, 3),
+          launches_a_step=sum(kernels.values()),
+          peak_mem_gib=round(peak / 2 ** 30, 3), card='"%s"' % card)
+    return mod
+
+
+def rnn_op_case(mode, bidirectional, seed):
+    T, B, I, H = RNN_VS_CPU
+    from mxnet_tpu_torch.ops.nn_ops import RNN_GATES
+    g, d = RNN_GATES[mode], 2 if bidirectional else 1
+    n, ins = 0, I
+    for _ in range(2):
+        n += d * (g * H * ins + g * H * H)
+        ins = H * d
+    n += 2 * 2 * d * g * H
+    rng = np.random.RandomState(seed)
+    arrays = [rng.uniform(-1, 1, (T, B, I)),
+              rng.uniform(-RNN_WEIGHT, RNN_WEIGHT, (n,)),
+              rng.uniform(-0.5, 0.5, (2 * d, B, H))]
+    if mode == "lstm":
+        arrays.append(rng.uniform(-0.5, 0.5, (2 * d, B, H)))
+    shapes = [(T, B, d * H)] + [(2 * d, B, H)] * (2 if mode == "lstm" else 1)
+    heads = [rng.normal(0, 1, s) for s in shapes]
+    return ([a.astype(np.float32) for a in arrays],
+            [h.astype(np.float32) for h in heads])
+
+
+def rnn_op_run(device, arrays, heads, attrs, training, seed):
+    """Outputs and input gradients of the ``RNN`` op on ``device``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.register import tensor_ops
+
+    mx.random.seed(seed)
+    ts = [torch.from_numpy(a).to(device).requires_grad_() for a in arrays]
+    with mx.autograd.train_mode() if training else \
+            mx.autograd.predict_mode():
+        outs = tensor_ops.RNN(*ts, **attrs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(list(outs), [torch.from_numpy(h).to(device)
+                                         for h in heads[:len(outs)]])
+    return ([o.detach().cpu().numpy() for o in outs],
+            [t.grad.cpu().numpy() for t in ts])
+
+
+def rnn_errs(got, want, masks=None):
+    """The largest |got - want| and the largest excess over the bound
+    (<= 0 within it), over the elements ``masks`` keep (default all)."""
+    err = excess = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = np.abs(g - w)
+        over = diff - RNN_ATOL - RNN_RTOL * np.abs(w)
+        if masks is not None:
+            diff, over = diff[masks[i]], over[masks[i]]
+        if diff.size:
+            err = max(err, float(diff.max()))
+            excess = max(excess, float(over.max()))
+    return err, excess
+
+
+def largest_grads(mod, seen):
+    """Fold the bound bucket's rescaled gradients into ``seen`` (name ->
+    the largest |gradient| of each element so far, over both runs)."""
+    cur = mod._curr_module
+    scale = cur._optimizer.rescale_grad
+    group = cur._exec_group
+    for name, grads in zip(group.param_names, group.grad_arrays):
+        g = grads[0].asnumpy() * scale
+        seen[name] = np.maximum(seen.get(name, 0), np.abs(g))
+
+
+def rnn_vs_cpu(dev):
+    """Phase: the ``RNN`` op on the card against the CPU for the four
+    modes, each uni- and bidirectional, 2 layers with ``state_outputs``:
+    outputs, final states and the gradients of data, parameters and states
+    within tests/test_rnn.py's bound; with ``p = 0.5`` in training, the
+    inter-layer masks bit-equal (drawn on both from one key) and the
+    outputs within the bound; then BucketingModule's first
+    RNN_VS_CPU_UPDATES Adam updates of lstm_bucketing at depth 1, card
+    against CPU from the same weights and batches, every weight but the
+    Adam ties (ADAM_TIE) within the bound."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.models import lstm_bucketing as lb
+    from mxnet_tpu_torch.ops.random_ops import bernoulli
+
+    T, B, I, H = RNN_VS_CPU
+    worst = {}
+    cpu = torch.device("cpu")
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        for bi in (False, True):
+            arrays, heads = rnn_op_case(mode, bi, 3)
+            attrs = dict(state_size=H, num_layers=2, bidirectional=bi,
+                         mode=mode, state_outputs=True)
+            got = rnn_op_run(dev, arrays, heads, attrs, False, 0)
+            want = rnn_op_run(cpu, arrays, heads, attrs, False, 0)
+            err, excess = rnn_errs(got[0] + got[1], want[0] + want[1])
+            if excess > 0:
+                fail("rnn_vs_cpu: %s bidirectional=%s: max abs %.3g beyond "
+                     "rtol %g / atol %g" % (mode, bi, err, RNN_RTOL,
+                                            RNN_ATOL))
+            worst["%s%s" % (mode, "_bi" if bi else "")] = err
+    # dropout between layers: the masks from one key, then the op
+    key = mx_random.split(mx_random.prng_key(7))[1]
+    masks = [bernoulli(key, 0.5, (T, B, 2 * H), d).cpu() for d in (dev, cpu)]
+    if not torch.equal(*masks):
+        fail("rnn_vs_cpu: the p=0.5 masks differ between the card and "
+             "the CPU")
+    arrays, heads = rnn_op_case("lstm", True, 4)
+    attrs = dict(state_size=H, num_layers=2, bidirectional=True,
+                 mode="lstm", state_outputs=True, p=0.5)
+    got = rnn_op_run(dev, arrays, heads, attrs, True, 5)
+    want = rnn_op_run(cpu, arrays, heads, attrs, True, 5)
+    drop_err, excess = rnn_errs(got[0] + got[1], want[0] + want[1])
+    if excess > 0:
+        fail("rnn_vs_cpu: p=0.5 in training: max abs %.3g" % drop_err)
+    # BucketingModule: the first updates at depth 1, card against CPU
+    w = dict(LSTM_PTB, num_layers=1)
+    mods, batches, grads = {}, None, {}
+    for where, device in (("card", dev), ("cpu", cpu)):
+        mx.random.seed(0)
+        with mx.name.NameManager():
+            mod = mx.mod.BucketingModule(
+                lb.sym_gen_factory(w["num_hidden"], 1, w["num_embed"],
+                                   w["vocab_size"]),
+                default_bucket_key=max(LSTM_BUCKETS), context=device)
+        it = lb.BucketSeqIter(list(LSTM_BUCKETS), w["batch_size"],
+                              w["vocab_size"], 1, ctx=device)
+        mod.bind(it.provide_data, it.provide_label)
+        if where == "card":
+            mod.init_params(mx.init.Xavier())
+            start = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        else:
+            from mxnet_tpu_torch import convert
+            mod.init_params(arg_params=convert.ndarrays_from_numpy(
+                start, ctx=cpu), aux_params={})
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params={"learning_rate": 0.01})
+        keys = []
+        for batch in itertools.islice(iter(it), RNN_VS_CPU_UPDATES):
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            largest_grads(mod, grads)
+            mod.update()
+            keys.append(batch.bucket_key)
+        batches = keys if batches is None else batches
+        if keys != batches:
+            fail("rnn_vs_cpu: the card and CPU iterators differ")
+        mods[where] = {k: v.asnumpy()
+                       for k, v in mod.get_params()[0].items()}
+    names = sorted(start)
+    keep = [(grads[k] >= ADAM_TIE) | (grads[k] == 0) for k in names]
+    ties = int(sum((~m).sum() for m in keep))
+    upd_err, excess = rnn_errs([mods["card"][k] for k in names],
+                               [mods["cpu"][k] for k in names], keep)
+    if excess > 0:
+        fail("rnn_vs_cpu: BucketingModule after %d updates: max abs %.3g"
+             % (RNN_VS_CPU_UPDATES, upd_err))
+    phase("rnn_vs_cpu", T=T, B=B, input=I, hidden=H, layers=2,
+          rtol=RNN_RTOL, atol=RNN_ATOL,
+          **{"max_abs_%s" % k: "%.3g" % v for k, v in worst.items()},
+          masks_bit_equal=True, dropout_max_abs="%.3g" % drop_err,
+          bucketing_updates=RNN_VS_CPU_UPDATES,
+          bucketing_buckets=",".join(str(b) for b in batches),
+          bucketing_max_abs="%.3g" % upd_err, adam_ties=ties,
+          adam_tie=ADAM_TIE, weights=sum(start[k].size for k in names))
+
+
+def gluon_lstm(dev, card):
+    """Phase: ``gluon.rnn.LSTM(200, num_layers=2, dropout=0.2)`` at B 32
+    and T 35 with explicit begin states, a training step (forward and
+    backward under ``autograd.record``) eager and hybridized: median step
+    ms (CUDA events), kernels launched and device ms of one step
+    (torch.profiler); the hybridized layer captures once and replays, and
+    its graphed output equals the eager forward under the same key.  Then
+    ``torch.nn.LSTM`` (cuDNN) forward and backward on the same weights, the
+    library's time for the same step, used nowhere in the port: in
+    prediction it computes what the layer computes."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import random as mx_random
+
+    T, B, H, L, p = GLUON_LSTM
+    mx.random.seed(0)
+    net = mx.gluon.rnn.LSTM(H, num_layers=L, dropout=p, input_size=H,
+                            device=dev)
+    net.initialize(mx.init.Xavier(), ctx=dev)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, (T, B, H)).astype(
+        np.float32)).to(dev)
+    states = [s._data for s in net.begin_state(B, ctx=dev)]
+
+    def step():
+        with mx.autograd.record():
+            out, new = net(x, states)
+            loss = out.sum() + sum(s.sum() for s in new)
+        loss.backward()
+        return out
+
+    numbers = {}
+    for way in ("eager", "hybrid"):
+        net.hybridize(way == "hybrid")
+        ms = [cuda_timed(step) for _ in range(GLUON_LSTM_STEPS)]
+        device_ms, kernels = device_profile(step)
+        numbers[way] = (median_of(ms), device_ms, sum(kernels.values()))
+    caps = net._cached_op.capture_stats()
+    if caps["captures"] != 1 or caps["replays"] < GLUON_LSTM_STEPS:
+        fail("gluon_lstm: not one capture replayed: %s" % caps)
+    # the graphed forward against the eager one under the same key
+    mx.random.seed(11)
+    with mx.autograd.record():
+        graphed = net(x, states)[0].detach()
+    mx.random.seed(11)
+    key = mx_random.next_key()
+    with mx.autograd.record(), mx_random.key_override(key):
+        eager = net.hybrid_call(x, *states)[0].detach()
+    if not torch.equal(graphed, eager):
+        fail("gluon_lstm: graphed output differs from eager by %.3g"
+             % (graphed - eager).abs().max().item())
+    # torch.nn.LSTM (cuDNN) on the same weights
+    ref = torch.nn.LSTM(H, H, num_layers=L, dropout=p).to(dev)
+    params = {k: v.data().asnumpy() for k, v in
+              net._collect_params_with_prefix().items()}
+    with torch.no_grad():
+        for k in range(L):
+            for ours, theirs in (("i2h_weight", "weight_ih"),
+                                 ("h2h_weight", "weight_hh"),
+                                 ("i2h_bias", "bias_ih"),
+                                 ("h2h_bias", "bias_hh")):
+                getattr(ref, "%s_l%d" % (theirs, k)).copy_(
+                    torch.from_numpy(params["l%d_%s" % (k, ours)]))
+    net.hybridize(False)
+    with mx.autograd.predict_mode():
+        ours = net(x, states)[0].detach()
+    ref.eval()
+    with torch.no_grad():
+        theirs = ref(x, tuple(states))[0]
+    lib_err = (ours - theirs).abs().max().item()
+    if lib_err > RNN_ATOL + RNN_RTOL * theirs.abs().max().item():
+        fail("gluon_lstm: torch.nn.LSTM in prediction differs by %.3g"
+             % lib_err)
+    ref.train()
+
+    def lib_step():
+        out, (h, c) = ref(x, tuple(states))
+        (out.sum() + h.sum() + c.sum()).backward()
+
+    lib_ms = median_of([cuda_timed(lib_step)
+                        for _ in range(GLUON_LSTM_STEPS)])
+    lib_device_ms, lib_kernels = device_profile(lib_step)
+    phase("gluon_lstm", T=T, B=B, hidden=H, layers=L, dropout=p,
+          eager_step_ms=round(numbers["eager"][0], 3),
+          eager_device_ms=round(numbers["eager"][1], 3),
+          eager_launches=numbers["eager"][2],
+          hybrid_step_ms=round(numbers["hybrid"][0], 3),
+          hybrid_device_ms=round(numbers["hybrid"][1], 3),
+          hybrid_launches=numbers["hybrid"][2],
+          captures=caps["captures"], replays=caps["replays"],
+          graphed_equals_eager=True,
+          torch_lstm_step_ms=round(lib_ms, 3),
+          torch_lstm_device_ms=round(lib_device_ms, 3),
+          torch_lstm_launches=sum(lib_kernels.values()),
+          torch_lstm_predict_max_abs="%.3g" % lib_err, card='"%s"' % card)
+
+
+def rnn_phases(cuda_ops, dev, card):
+    """The recurrent models: ``lstm_bucketing``, ``lstm_bucketing_unfused``,
+    ``rnn_vs_cpu`` and ``gluon_lstm``.  Returns the kernel's launches there
+    (``launches_rnn``; 0: no attention on these paths)."""
+    seconds = {}
+    reset_launches(cuda_ops)
+    for name, fn in (("lstm_bucketing", lambda: lstm_bucketing(dev, card,
+                                                                True)),
+                     ("lstm_bucketing_unfused",
+                      lambda: lstm_bucketing(dev, card, False)),
+                     ("rnn_vs_cpu", lambda: rnn_vs_cpu(dev)),
+                     ("gluon_lstm", lambda: gluon_lstm(dev, card))):
+        t0 = time.time()
+        fn()
+        seconds[name] = round(time.time() - t0, 2)
+    phase("rnn_seconds", **seconds)
+    launches = cuda_ops.flash_attention.launches
+    phase("launches_rnn", flash_attention=launches)
+    if launches:
+        fail("the recurrent phases launched flash_attention %d times"
+             % launches)
+    return launches
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -6872,6 +7320,7 @@ def main():
     launches_optim = optim_resume_phases(cuda_ops, dev, smi)
     launches_int8 = int8_phases(cuda_ops, dev, smi)
     launches_input = input_phases(cuda_ops, dev, smi)
+    launches_rnn = rnn_phases(cuda_ops, dev, smi)
 
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -6880,7 +7329,7 @@ def main():
               + launches_train_bf16 + launches_nd + launches_functional
               + launches_hybrid + launches_exported + launches_fleet
               + launches_word_lm + launches_optim + launches_int8
-              + launches_input,
+              + launches_input + launches_rnn,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
               "launches_hybrid_train": launches_hybrid,
@@ -6893,7 +7342,8 @@ def main():
               "launches_word_lm": launches_word_lm,
               "launches_optim": launches_optim,
               "launches_int8": launches_int8,
-              "launches_input": launches_input}
+              "launches_input": launches_input,
+              "launches_rnn": launches_rnn}
     kernel.update(numbers)
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel]}))

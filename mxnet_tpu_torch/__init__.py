@@ -29,11 +29,14 @@ losses, and the vision model zoo; and int8 inference
 products in cuBLASLt's int8 GEMM on the card); and the input pipeline:
 ``recordio``, the native decode library (``_native``), ``io``'s
 iterators and ``DeviceFeed`` (batches staged on the card from a CUDA side
-stream), ``gluon.data`` and ``image``.
+stream), ``gluon.data`` and ``image``; and the recurrent models: the
+fused ``RNN`` op, ``rnn`` (the legacy symbolic cells, RNN checkpoints,
+``BucketSentenceIter``), ``mod.BucketingModule``, ``SequentialModule`` and
+``PythonModule``, and ``gluon.rnn`` and ``gluon.contrib.rnn``.
 """
 from . import autograd, callback, initializer, io, metric, ndarray, random
 from . import lr_scheduler, model, module, optimizer, symbol
-from . import contrib, gluon, image, recordio
+from . import contrib, gluon, image, recordio, rnn
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -47,4 +50,4 @@ __all__ = ["MXNetError", "cpu", "cpu_pinned", "gpu", "tpu",
            "current_context", "metric", "nd", "ndarray", "autograd",
            "random", "initializer", "init", "io", "sym", "symbol", "mod",
            "module", "callback", "model", "optimizer", "lr_scheduler",
-           "AttrScope", "gluon", "contrib", "image", "recordio"]
+           "AttrScope", "gluon", "contrib", "image", "recordio", "rnn"]

@@ -1,5 +1,6 @@
 """gluon.contrib (counterpart of ``mxnet_tpu/gluon/contrib``): the data
-samplers so far; ``nn`` and ``rnn`` wait for ROADMAP queue 1 #7 and #9."""
-from . import data
+samplers and the recurrent cells of ``rnn``; ``nn`` waits for ROADMAP
+queue 1 #9."""
+from . import data, rnn
 
-__all__ = ["data"]
+__all__ = ["data", "rnn"]

@@ -305,6 +305,10 @@ class BaseModule:
                     # feed's batches are copies, staged before the source
                     # moves on)
                     upcoming = next(batches, _NO_BATCH)
+                    if upcoming is not _NO_BATCH:
+                        # a BucketingModule switches to (and binds) the
+                        # upcoming batch's bucket here
+                        self.prepare(upcoming)
                     if upcoming is _NO_BATCH:
                         # snapshot before callbacks may auto-reset the metric
                         eval_name_vals = eval_metric.get_name_value()
@@ -439,6 +443,21 @@ class BaseModule:
             else:
                 raise ValueError("Invalid param file " + fname)
         self.set_params(arg_params, aux_params)
+
+    def get_states(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        assert not merge_multi_context
+        return []
+
+    def set_states(self, states=None, value=None):
+        assert self.binded and self.params_initialized
+        assert not states and not value
+
+    def install_monitor(self, mon):
+        raise NotImplementedError()
+
+    def prepare(self, data_batch, sparse_row_id_fn=None):
+        pass
 
     def forward(self, data_batch, is_train=None):
         raise NotImplementedError()

@@ -292,6 +292,15 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer, updater and kvstore (a
+        BucketingModule's buckets share one optimizer state)."""
+        assert shared_module.optimizer_initialized
+        for attr in ("_optimizer", "_kvstore", "_update_on_kvstore",
+                     "_updater"):
+            setattr(self, attr, getattr(shared_module, attr))
+        self.optimizer_initialized = True
+
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
         curr_data_shapes = tuple(i.shape for i in self._data_shapes)
@@ -336,6 +345,13 @@ class Module(BaseModule):
     def get_input_grads(self, merge_multi_context=True):
         assert self.binded and self.params_initialized and self.inputs_need_grad
         return self._exec_group.get_input_grads(merge_multi_context=merge_multi_context)
+
+    def get_states(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return []
+
+    def set_states(self, states=None, value=None):
+        assert self.binded and self.params_initialized
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._exec_group.update_metric(eval_metric, labels, pre_sliced)

@@ -1,0 +1,210 @@
+"""SequentialModule: a chain of modules run in order (counterpart of
+``mxnet_tpu/module/sequential_module.py``): each binds against the
+previous one's outputs, labels reach the modules added with
+``take_labels=True``, and backward passes each module's input gradients
+to the one before it."""
+from __future__ import annotations
+
+import logging
+
+from .base_module import BaseModule
+
+
+class SequentialModule(BaseModule):
+    META_TAKE_LABELS = "take_labels"
+    META_AUTO_WIRING = "auto_wiring"
+
+    def __init__(self, logger=logging):
+        super().__init__(logger=logger)
+        self._modules = []
+        self._metas = []
+        self._label_shapes = None
+        self._data_shapes = None
+        self._meta_keys = set([getattr(SequentialModule, x)
+                               for x in dir(SequentialModule)
+                               if x.startswith("META_")])
+
+    def add(self, module, **kwargs):
+        self._modules.append(module)
+        for key in kwargs:
+            assert key in self._meta_keys, "Unknown meta \"%s\"" % key
+        self._metas.append(kwargs)
+        self.binded = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        return self
+
+    @property
+    def data_names(self):
+        if len(self._modules) > 0:
+            return self._modules[0].data_names
+        return []
+
+    @property
+    def output_names(self):
+        if len(self._modules) > 0:
+            return self._modules[-1].output_names
+        return []
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._modules[0].data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        assert self.binded
+        return self._modules[-1].output_shapes
+
+    def get_params(self):
+        """Union of every layer-module's (arg, aux) parameter dicts."""
+        assert self.binded and self.params_initialized
+        merged = ({}, {})
+        for module in self._modules:
+            for acc, part in zip(merged, module.get_params()):
+                acc.update(part)
+        return merged
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False, allow_extra=False):
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded
+        for module in self._modules:
+            module.init_params(initializer=initializer, arg_params=arg_params,
+                               aux_params=aux_params, allow_missing=allow_missing,
+                               force_init=force_init, allow_extra=allow_extra)
+
+        def _check_name(known_names, new_names, modules, i):
+            for name in new_names:
+                assert not name in known_names, "Duplicated parameter names: " + \
+                    ("name \"%s\" in layer %d (%s) is already " % (name, i, type(modules[i]))) + \
+                    ("used in layer %d (%s)." % (known_names[name], type(modules[known_names[name]])))
+                known_names[name] = i
+
+        arg_names = dict()
+        aux_names = dict()
+        for i_layer, module in enumerate(self._modules):
+            arg_params_, aux_params_ = module.get_params()
+            _check_name(arg_names, arg_params_.keys(), self._modules, i_layer)
+            _check_name(aux_names, aux_params_.keys(), self._modules, i_layer)
+        self.params_initialized = True
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        if self.binded and not force_rebind:
+            self.logger.warning("Already bound, ignoring bind()")
+            return
+        if inputs_need_grad:
+            assert for_training
+        assert shared_module is None, "Shared module is not supported"
+        assert len(self._modules) > 0, "Attempting to bind an empty SequentialModule"
+
+        self.binded = True
+        self._label_shapes = label_shapes
+
+        # each layer binds against the previous layer's output schema;
+        # labels only reach the layers that declared META_TAKE_LABELS
+        my_data_shapes = data_shapes
+        anybody_ever_needs_label = False
+        for i_layer, module in enumerate(self._modules):
+            meta = self._metas[i_layer]
+            takes_labels = bool(meta.get(SequentialModule.META_TAKE_LABELS))
+            my_label_shapes = label_shapes if takes_labels else None
+            anybody_ever_needs_label |= takes_labels
+            # downstream layers always need input grads for backprop
+            my_inputs_need_grad = bool(for_training and
+                                       (inputs_need_grad or i_layer > 0))
+
+            if meta.get(SequentialModule.META_AUTO_WIRING, False):
+                data_names = module.data_names
+                assert len(data_names) == len(my_data_shapes)
+                my_data_shapes = [(new_name, shape) for (new_name, (_, shape))
+                                  in zip(data_names, my_data_shapes)]
+
+            module.bind(data_shapes=my_data_shapes, label_shapes=my_label_shapes,
+                        for_training=for_training,
+                        inputs_need_grad=my_inputs_need_grad,
+                        force_rebind=force_rebind, shared_module=None,
+                        grad_req=grad_req)
+            if i_layer == 0:
+                self._data_shapes = module.data_shapes
+            my_data_shapes = [(n, s) for n, s in
+                              zip(module.output_names,
+                                  [o[1] for o in module.output_shapes])] \
+                if hasattr(module, "output_shapes") else my_data_shapes
+            try:
+                my_data_shapes = module.output_shapes
+            except Exception:
+                pass
+
+        if not anybody_ever_needs_label:
+            self._label_shapes = None
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        assert self.binded and self.params_initialized
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, ignoring.")
+            return
+        for module in self._modules:
+            module.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                                  optimizer_params=optimizer_params,
+                                  force_init=force_init)
+        self.optimizer_initialized = True
+
+    def forward(self, data_batch, is_train=None):
+        assert self.binded and self.params_initialized
+        from ..io.io import DataBatch
+        data_batch = DataBatch(data=data_batch.data, label=data_batch.label,
+                               pad=data_batch.pad, index=data_batch.index,
+                               provide_data=getattr(data_batch, "provide_data", None),
+                               provide_label=getattr(data_batch, "provide_label", None))
+        for i_layer, module in enumerate(self._modules):
+            module.forward(data_batch, is_train=is_train)
+            if i_layer + 1 == len(self._modules):
+                break
+            data_batch = DataBatch(data=module.get_outputs(),
+                                   label=data_batch.label, pad=data_batch.pad,
+                                   index=data_batch.index)
+
+    def backward(self, out_grads=None):
+        assert self.binded and self.params_initialized
+        for i_layer, module in reversed(list(zip(range(len(self._modules)),
+                                                 self._modules))):
+            module.backward(out_grads=out_grads)
+            if i_layer == 0:
+                break
+            out_grads = module.get_input_grads()
+
+    def update(self):
+        assert self.binded and self.params_initialized and self.optimizer_initialized
+        for module in self._modules:
+            module.update()
+
+    def get_outputs(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._modules[-1].get_outputs(merge_multi_context=merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized and self.inputs_need_grad
+        return self._modules[0].get_input_grads(merge_multi_context=merge_multi_context)
+
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        assert self.binded and self.params_initialized
+        for meta, module in zip(self._metas, self._modules):
+            if SequentialModule.META_TAKE_LABELS in meta and \
+                    meta[SequentialModule.META_TAKE_LABELS]:
+                module.update_metric(eval_metric, labels, pre_sliced)
+
+    def install_monitor(self, mon):
+        assert self.binded
+        for module in self._modules:
+            module.install_monitor(mon)

@@ -6,9 +6,9 @@
 ``log_softmax`` :486, ``softmin`` :496, ``SoftmaxActivation`` :503,
 ``SoftmaxOutput`` :512, ``softmax_cross_entropy`` :633, the regression
 outputs :642-704, ``Dropout`` :711, ``SequenceMask``/``Last``/``Reverse``
-:735-785, ``CTCLoss`` :966 and ``IdentityAttachKLSparseReg`` :1179.
-``RNN``, ``_contrib_SyncBatchNorm`` and the spatial samplers are not
-ported yet.
+:735-785, ``RNN`` :786-900, ``CTCLoss`` :966 and
+``IdentityAttachKLSparseReg`` :1179.  ``_contrib_SyncBatchNorm`` and the
+spatial samplers are not ported yet.
 
 The Gluon layers compute through the functions here
 (:func:`fully_connected`, :func:`convolution`, :func:`deconvolution`,
@@ -31,7 +31,7 @@ from .tensor_ops import _index
 __all__ = ["ACTIVATIONS", "fully_connected", "convolution",
            "deconvolution", "pooling",
            "batch_norm_output", "batch_stats", "layer_norm", "dropout",
-           "instance_norm"]
+           "instance_norm", "rnn", "RNN_GATES"]
 
 ACTIVATIONS = {"relu": F.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
                "softrelu": F.softplus, "softsign": F.softsign}
@@ -735,6 +735,135 @@ def _identity_attach_kl(attrs, data):
 
 
 # ---------------------------------------------------------------------------
+# the fused RNN (``:786-900``): a loop over time in torch ops, as the
+# reference's is a ``lax.scan`` of jnp ops (no Pallas kernel)
+
+RNN_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+
+
+def rnn_num_outputs(attrs):
+    """The registered count (``:793-795``): 3 for an LSTM with
+    ``state_outputs``, 2 for the other modes with it, 1 without."""
+    if not attrs.get("state_outputs", False):
+        return 1
+    return 3 if attrs.get("mode", "lstm") == "lstm" else 2
+
+
+def rnn_unpack(parameters, mode, input_size, state_size, num_layers, ndir):
+    """Views of the packed blob (``:827-838``): every layer's and
+    direction's ``Wx (G*H, in)`` then ``Wh (G*H, H)``, then all the biases,
+    ``Bx`` then ``Bh`` for each; lists indexed by ``layer * ndir + d``."""
+    G, H = RNN_GATES[mode], state_size
+    offset = 0
+
+    def take(shape):
+        nonlocal offset
+        n = math.prod(shape)
+        w = parameters[offset:offset + n].reshape(shape)
+        offset += n
+        return w
+
+    wx, wh, bx, bh = [], [], [], []
+    for layer in range(num_layers):
+        in_size = input_size if layer == 0 else H * ndir
+        for _ in range(ndir):
+            wx.append(take((G * H, in_size)))
+            wh.append(take((G * H, H)))
+    for _ in range(num_layers * ndir):
+        bx.append(take((G * H,)))
+        bh.append(take((G * H,)))
+    return wx, wh, bx, bh
+
+
+def _rnn_step(mode, xp, h, c, whh, bh):
+    """One step from the precomputed input projection ``xp`` (``:840-862``;
+    the GRU is cuDNN's, ``n = tanh(xn + r * (hn + bn))``)."""
+    if mode == "gru":
+        xr, xz, xn = torch.chunk(xp, 3, dim=-1)
+        hr, hz, hn = torch.chunk(torch.matmul(h, whh.t()), 3, dim=-1)
+        br, bz, bn = torch.chunk(bh, 3)
+        r = torch.sigmoid(xr + hr + br)
+        z = torch.sigmoid(xz + hz + bz)
+        n = torch.tanh(xn + r * (hn + bn))
+        return (1 - z) * n + z * h, c
+    gates = xp + torch.matmul(h, whh.t()) + bh
+    if mode == "rnn_relu":
+        return torch.relu(gates), c
+    if mode == "rnn_tanh":
+        return torch.tanh(gates), c
+    i, f, g, o = torch.chunk(gates, 4, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    c_new = f * c + i * torch.tanh(g)
+    return o * torch.tanh(c_new), c_new
+
+
+def rnn(data, parameters, state, state_cell=None, mode="lstm",
+        state_size=None, num_layers=1, bidirectional=False, p=0.0,
+        training=False, key=None):
+    """The fused multi-layer RNN over ``data`` (T, B, I), as the JAX op
+    computes it: for each layer and direction the input projection of all
+    steps at once (``x Wx^T + Bx``), then a step at a time ``xp + h Wh^T +
+    Bh`` through the gates.  The backward direction runs over the flipped
+    sequence and flips its outputs back.  Between layers, in training with
+    ``p > 0``, dropout draws ``key, sub = split(key)`` and keeps
+    ``bernoulli(sub, 1 - p)``: ``x * mask / (1 - p)``, the JAX op's masks
+    and arithmetic.  Returns ``(out, h_T, c_T)``, the final states stacked
+    at ``layer * ndir + d``; a missing ``state_cell`` is zeros."""
+    from .random_ops import bernoulli
+    from ..random import split
+    T, B, I = data.shape
+    ndir = 2 if bidirectional else 1
+    wx, wh, bx, bh = rnn_unpack(parameters, mode, I, int(state_size),
+                                num_layers, ndir)
+    x = data
+    h_finals, c_finals = [], []
+    for layer in range(num_layers):
+        outs = []
+        for d in range(ndir):
+            li = layer * ndir + d
+            h = state[li]
+            c = state_cell[li] if mode == "lstm" and state_cell is not None \
+                else torch.zeros_like(h)
+            xs = torch.flip(x, dims=(0,)) if d == 1 else x
+            xp = torch.matmul(xs, wx[li].t()) + bx[li]
+            ys = []
+            for t in range(T):
+                h, c = _rnn_step(mode, xp[t], h, c, wh[li], bh[li])
+                ys.append(h)
+            ys = torch.stack(ys)
+            outs.append(torch.flip(ys, dims=(0,)) if d == 1 else ys)
+            h_finals.append(h)
+            c_finals.append(c)
+        x = torch.cat(outs, dim=-1) if ndir == 2 else outs[0]
+        if p > 0 and training and layer < num_layers - 1 \
+                and key is not None:
+            key, sub = split(key)
+            mask = bernoulli(sub, 1 - p, tuple(x.shape), x.device)
+            # a divisor on the device: a host scalar would make CUDA
+            # multiply by its reciprocal instead of dividing
+            x = x * mask.to(x.dtype) / torch.full(
+                (), 1 - p, dtype=x.dtype, device=x.device)
+    return x, torch.stack(h_finals), torch.stack(c_finals)
+
+
+@register("RNN", num_outputs=rnn_num_outputs, mode_dependent=True,
+          needs_rng=True)
+def _rnn(attrs, data, parameters, state, state_cell=None):
+    """The fused RNN (``:793-900``), :func:`rnn` under the op's attributes;
+    its outputs as :func:`rnn_num_outputs` counts them."""
+    mode = attrs.get("mode", "lstm")
+    out, hs, cs = rnn(
+        data, parameters, state, state_cell, mode, int(attrs["state_size"]),
+        int(attrs.get("num_layers", 1)), bool(attrs.get("bidirectional",
+                                                        False)),
+        float(attrs.get("p", 0.0)), bool(attrs.get("_training", False)),
+        attrs.get("_rng_key"))
+    if not attrs.get("state_outputs", False):
+        return out
+    return (out, hs, cs) if mode == "lstm" else (out, hs)
+
+
+# ---------------------------------------------------------------------------
 # the symbolic API's input specs and parameter shapes (the JAX package's
 # ``nn_ops.py:1185-1340``, for the ops ported here)
 
@@ -826,6 +955,24 @@ def _regression_label_shape(attrs, in_shapes):
     return {"label": tuple(in_shapes[0])}
 
 
+def _rnn_param_shapes(attrs, in_shapes):
+    T, B, I = in_shapes[0]
+    H = int(attrs["state_size"])
+    L = int(attrs.get("num_layers", 1))
+    D = 2 if attrs.get("bidirectional") else 1
+    G = RNN_GATES[attrs.get("mode", "lstm")]
+    total = 0
+    in_size = I
+    for _ in range(L):
+        total += D * (G * H * in_size + G * H * H)
+        in_size = H * D
+    total += 2 * L * D * G * H
+    out = {"parameters": (total,), "state": (L * D, B, H)}
+    if attrs.get("mode") == "lstm":
+        out["state_cell"] = (L * D, B, H)
+    return out
+
+
 def set_symbol_specs():
     """Attach the specs (once every op module has registered)."""
     from .registry import get_op
@@ -854,6 +1001,9 @@ def set_symbol_specs():
                                 _regression_label_shape),
         "LogisticRegressionOutput": (["data", "label:label"],
                                      _regression_label_shape),
+        "RNN": (lambda attrs: ["data", "parameters", "zero:state"] + (
+            ["zero:state_cell"] if attrs.get("mode", "lstm") == "lstm"
+            else []), _rnn_param_shapes),
         "SVMOutput": (["data", "label:label"],
                       lambda attrs, in_shapes: {"label": (in_shapes[0][0],)}),
     }

@@ -1,7 +1,8 @@
 """Shape, slicing, joining, indexing, ordering, dot and creator ops
 (counterpart of ``mxnet_tpu/ops/tensor_ops.py``): ``Reshape`` with
 MXNet's codes (:24-66), ``Flatten`` (:69), ``transpose`` (:77),
-``SwapAxis``/``swapaxes`` (:85), ``expand_dims`` (:109), ``squeeze``
+``SwapAxis``/``swapaxes`` (:85), ``_rnn_state_like`` (:94),
+``expand_dims`` (:109), ``squeeze``
 (:114), ``shape_array``/``size_array`` (:129-141), ``broadcast_to``,
 ``broadcast_like`` and ``broadcast_axis``/``broadcast_axes`` (:144-170),
 ``slice``/``crop`` (:194), ``slice_axis`` (:204), ``slice_like`` (:214),
@@ -124,6 +125,17 @@ def _swap_axis(attrs, x):
 
 
 alias("swapaxes", "SwapAxis")
+
+
+@register("_rnn_state_like")
+def _rnn_state_like(attrs, ref):
+    """Zeros for an RNN begin state in ``ref``'s dtype and on its device:
+    each 0 of ``shape`` becomes ``ref.shape[ref_axis]`` (``:94-105``; the
+    legacy ``mx.rnn`` cells' default states read their batch size off the
+    input this way)."""
+    b = ref.shape[int(attrs.get("ref_axis", 0))]
+    shape = tuple(b if int(s) == 0 else int(s) for s in attrs["shape"])
+    return torch.zeros(shape, dtype=ref.dtype, device=ref.device)
 
 
 @register("squeeze")

@@ -33,8 +33,6 @@ EXACT = dict(rtol=0, atol=0)
 
 # registered in the JAX package, waiting for a later slice of the port
 WAITING = {
-    # the recurrent slice
-    "RNN", "_rnn_state_like",
     # multi-device BatchNorm
     "_contrib_SyncBatchNorm",
     # with operator.py
@@ -298,6 +296,21 @@ def _nn_cases():
              grad=[0]),
         Case("SequenceReverse", [seq]),
         Case("IdentityAttachKLSparseReg", [_f(3, 4)]),
+        Case("RNN", [_f(3, 2, 4, low=-1, high=1),
+                     # per layer and direction Wx, Wh, then the biases
+                     _f(2 * 12 * (4 + 3) + 2 * 12 * (6 + 3) + 8 * 12,
+                        low=-0.5, high=0.5),
+                     _f(4, 2, 3, low=-0.5, high=0.5),
+                     _f(4, 2, 3, low=-0.5, high=0.5)],
+             {"state_size": 3, "num_layers": 2, "bidirectional": True,
+              "mode": "lstm", "state_outputs": True}, tol=NN),
+        Case("RNN", [_f(3, 2, 4, low=-1, high=1),
+                     _f(3 * 3 * (4 + 3) + 3 * 3 * (3 + 3) + 2 * 2 * 3 * 3,
+                        low=-0.5, high=0.5),
+                     _f(2, 2, 3, low=-0.5, high=0.5)],
+             {"state_size": 3, "num_layers": 2, "mode": "gru"}, tol=NN),
+        Case("_rnn_state_like", [_f(3, 5, 2)], {"shape": (2, 0, 4),
+                                               "ref_axis": 1}, grad=[]),
     ]
 
 
@@ -448,7 +461,7 @@ def test_ops_match_jax_values_and_gradients(table, jax_reference):
 
 def test_the_port_registers_all_but_the_waiting_names():
     """The audit: the JAX package's names less the port's are exactly the
-    21 that wait for a later slice, and the port has no name of its own."""
+    19 that wait for a later slice, and the port has no name of its own."""
     ours, theirs = set(list_ops()), set(jax_list_ops())
     assert theirs - ours == WAITING
     assert ours <= theirs
