@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU.
 
-Builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc/``, holds each
-against its plain PyTorch version on the card (forward, and the gradient
+Builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc/`` (one nvcc a
+source, started together), holds each against its plain PyTorch version
+on the card (forward, and the gradient
 the training path takes through it), then drives the full-width
 TransformerLM (vocab 32768, dim 768, 12 layers, 12 heads, T up to 1024;
 random weights from a seed) down both of the port's paths: served through
@@ -110,7 +111,20 @@ op's four modes and its dropout masks card against CPU, and the first
 bucketing updates (``rnn_vs_cpu``); and ``gluon.rnn.LSTM`` eager and
 hybridized beside ``torch.nn.LSTM`` on the same weights (``gluon_lstm``).
 The reference's RNN is a ``lax.scan`` of jnp ops, not a Pallas kernel:
-flash_attention launches 0 times there (``launches_rnn``).
+flash_attention launches 0 times there (``launches_rnn``).  Last, object
+detection (``detection_phases``): ``models/ssd.py``'s ``main`` at
+VGG-16 / 300 x 300, 20 classes, B = 32 (7,096 anchors), Adam, mining 3:1,
+the loss falling over 2 epochs, a detection kept, the mAP before and
+after, then timed steps, a forward's breakdown and the NMS scan on a
+held-out batch's masks (``ssd_vgg16``); ``models/rcnn.py``'s ``main``
+(``rcnn_example``); Faster R-CNN's proposal layer at 600 x 1000 (20,646
+boxes, 6,000 into NMS 0.7, 300 out), ``ROIPooling`` and ``ROIAlign``
+7 x 7 over its rois, against the CPU (``rcnn_ops_full``); and the 17
+detection and spatial ops card against CPU (``detection_ops_vs_cpu``).
+The reference's greedy NMS is a ``lax.fori_loop``, not Pallas; here its
+scan is the hand-written ``csrc/greedy_nms.cu`` (the ``kernels`` line's
+``greedy_nms``: launches on each path, time at the SSD's and Proposal's
+sizes, bit-equal to its plain loop on their masks).
 
     python3 chip_smoke.py
 
@@ -299,29 +313,18 @@ def time_ms(fn, reps=20, calls=TIMED_CALLS):
 
 
 def build_report(_kernels):
-    """Phase 1: build the kernel, print ptxas's registers and spills and the
-    dynamic shared memory of each instance, and count the tensor-core (HMMA)
-    instructions in the library's SASS; fails if there are none."""
+    """Phase 1: build the kernels, one nvcc a source started together;
+    print ptxas's registers and spills of each kernel instance (and the
+    attention kernel's dynamic shared memory), and count the tensor-core
+    (HMMA) instructions in the attention library's SASS; fails if there
+    are none."""
     t0 = time.time()
-    _kernels.load()
+    built = _kernels.build_all()   # one nvcc a source, started together
     seconds = round(time.time() - t0, 2)
-    instances, name = {}, None
-    for line in _kernels.build_log().splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            instances[name] = {}
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            instances[name].update(spill_stores=int(m.group(1)),
-                                   spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            instances[name]["registers"] = int(m.group(1))
+    phase("build_all", seconds=seconds,
+          **{"%s_s" % k: round(v, 2) for k, v in sorted(built.items())})
+    nms_report(_kernels)
+    instances = ptxas_report(_kernels.build_log())
     if not instances:
         fail("no ptxas report in the build log")
     cuobjdump = str(Path(_kernels._nvcc()).with_name("cuobjdump"))
@@ -349,6 +352,43 @@ def build_report(_kernels):
     if not sum(hmma.values()):
         fail("no HMMA instruction in the kernel's SASS: the tensor cores "
              "do not run")
+
+
+def ptxas_report(log):
+    """{kernel: {registers, spill_stores, spill_loads}} from ptxas -v."""
+    instances, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            instances[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            instances[name].update(spill_stores=int(m.group(1)),
+                                   spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            instances[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            instances[name]["smem_bytes"] = int(m.group(1))
+    return instances
+
+
+def nms_report(_kernels):
+    """The greedy NMS scan's build: each kernel's registers, spills and
+    static shared memory from ptxas; fails if the log names no kernel."""
+    instances = ptxas_report(_kernels.build_log("greedy_nms"))
+    if not instances:
+        fail("no ptxas report in the greedy_nms build log")
+    phase("build", source="mxnet_tpu_torch/csrc/greedy_nms.cu",
+          kernels=len(instances))
+    for mangled, info in sorted(instances.items()):
+        phase("instance", kernel=mangled, **info)
 
 
 def check_kernel(cuda_ops, dev):
@@ -2084,8 +2124,9 @@ def nd_ops(dev):
                      "(relative to its norm; bound %g)"
                      % (name, i, err, tol[2] if len(tol) > 2
                         else GRAD_REL_BOUND))
+    # the detection ops are held in detection_ops_vs_cpu
     missing = {n for n in list_ops() if get_op(n) not in seen
-               and n not in UNPORTED_DRAWS}
+               and n not in UNPORTED_DRAWS and n not in DETECTION_OPS}
     if missing:
         fail("nd_ops covers no case of %s" % sorted(missing))
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
@@ -7239,6 +7280,505 @@ def rnn_phases(cuda_ops, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the detection slice: SSD at VGG-16 / 300 x 300, example/rcnn, Faster
+# R-CNN's proposal and ROI ops at its test-time widths, the 17 ops card
+# against CPU, and the greedy NMS scan's kernel against its plain loop
+
+SSD_ARGS = dict(num_classes=20, backbone="vgg16", num_scales=3,
+                img_size=300, batch_size=32)
+SSD_EPOCHS, SSD_ITERS, SSD_EVAL_BATCHES = 2, 10, 2
+SSD_ANCHORS = 7096          # 4 x (37^2 + 18^2 + 9^2) at 300 x 300
+SSD_TIMED_STEPS = 6
+SSD_NMS = 0.45
+# Faster R-CNN's test-time RPN (MXNet example/rcnn, VGG-16 conv5_3 at
+# stride 16 over a 600 x 1000 image: 37 x 62 after four floor-mode pools)
+RCNN_MAP = (512, 37, 62)
+RCNN_IM_INFO = (600.0, 1000.0, 1.0)
+PROPOSAL_FULL = {"rpn_pre_nms_top_n": 6000, "rpn_post_nms_top_n": 300,
+                 "threshold": 0.7, "rpn_min_size": 16, "feature_stride": 16,
+                 "scales": (8.0, 16.0, 32.0), "ratios": (0.5, 1.0, 2.0)}
+ROI_FULL = {"pooled_size": (7, 7), "spatial_scale": 1.0 / 16}
+IOU_TIE = 1e-6        # an IoU this close to the threshold may round apart
+ROIS_ATOL = 1e-3      # px: 16 fp32 ulps at 1,000 (exp's last bits, scaled)
+ROI_CHUNK = 30        # rois a CPU ROIPooling call takes (~0.4 GB each)
+DETECTION_OPS = (
+    "ROIPooling", "_contrib_ROIAlign", "_contrib_PSROIPooling",
+    "_contrib_DeformablePSROIPooling", "_contrib_DeformableConvolution",
+    "_contrib_MultiBoxPrior", "_contrib_MultiBoxTarget",
+    "_contrib_MultiBoxDetection", "_contrib_Proposal",
+    "_contrib_MultiProposal", "_contrib_box_iou", "_contrib_box_nms",
+    "_contrib_bipartite_matching", "BilinearSampler", "GridGenerator",
+    "SpatialTransformer", "Correlation")
+
+
+def nms_bound(keep):
+    """(bound ms, the pack pass's read ms) of the scan that gave ``keep``
+    (B, K): the bytes the recurrence must move, each kept candidate j's
+    row past j (K - 1 - j bytes of sup: no other row decides a keep),
+    init read once and keep written once, over the card's memory rate;
+    beside it the strict upper triangle of sup, which this design's pack
+    pass reads whole."""
+    bytes_peak = card_peaks(torch.cuda.get_device_name(0))[3]
+    B, K = keep.shape
+    tail = K - 1 - torch.arange(K, device=keep.device)
+    need = int((keep * tail).sum()) + 2 * B * K
+    return need / bytes_peak * 1e3, B * K * (K - 1) // 2 / bytes_peak * 1e3
+
+
+def nms_against_plain(nms_ops, sup, init, label, card):
+    """The kernel against its plain loop on one mask on the card: keep
+    masks bit-equal; both timed (the plain loop's K steps of small ops)."""
+    keep = nms_ops.greedy_nms(sup, init)
+    want = nms_ops.greedy_nms_reference(sup, init)
+    torch.cuda.synchronize()
+    mismatches = int((keep != want).sum())
+    if mismatches:
+        fail("greedy_nms %s: %d keep decisions differ from the plain loop"
+             % (label, mismatches))
+    B, K = init.shape
+    ms = time_ms(lambda: nms_ops.greedy_nms(sup, init), reps=10, calls=4)
+    plain_ms = time_ms(lambda: nms_ops.greedy_nms_reference(sup, init),
+                       reps=2, calls=1)
+    bound_ms, pack_ms = nms_bound(keep)
+    numbers = dict(B=B, K=K, kept=int(keep.sum()), candidates=int(init.sum()),
+                   suppressing_pairs=int(sup.triu(1).sum()),
+                   mismatches=mismatches, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by="bytes",
+                   pack_read_ms=pack_ms, chain_steps=K,
+                   block_steps=(K + 63) // 64)
+    phase("greedy_nms_" + label, **numbers, card='"%s"' % card)
+    return numbers
+
+
+def ssd_argv(dev):
+    return ["--backbone", SSD_ARGS["backbone"],
+            "--num-classes", str(SSD_ARGS["num_classes"]),
+            "--num-scales", str(SSD_ARGS["num_scales"]),
+            "--img-size", str(SSD_ARGS["img_size"]),
+            "--batch-size", str(SSD_ARGS["batch_size"]),
+            "--epochs", str(SSD_EPOCHS), "--iters", str(SSD_ITERS),
+            "--eval-batches", str(SSD_EVAL_BATCHES), "--device", str(dev)]
+
+
+def ssd_vgg16(dev, card, nms_ops):
+    """Phase ``ssd_vgg16``: ``models/ssd.py``'s ``main`` with
+    ``MultiScaleSSD(20, backbone='vgg16', num_scales=3)`` at 300 x 300,
+    B = 32 (PASCAL VOC's classes, the upstream example's data shape and
+    batch): Adam at lr 0.002, mining 3:1, SSD_EPOCHS of SSD_ITERS synthetic
+    batches, mAP (NMS 0.45, top 100) on SSD_EVAL_BATCHES held-out batches
+    before and after.  The kernel's launches are those of this run.  Then
+    SSD_TIMED_STEPS steps on staged batches (CUDA events), a forward's
+    breakdown, one step profiled, and the scan on a held-out batch's mask
+    against its plain loop.  Gates: 7,096 anchors, the last epoch's loss
+    below the first, a detection kept after NMS."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops import contrib_ops
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    mx.random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nms_ops.greedy_nms.launches = 0
+    t0 = time.time()
+    out = ssd.main(ssd_argv(dev))
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    launches = nms_ops.greedy_nms.launches
+    peak_main = torch.cuda.max_memory_allocated(dev)
+    losses, net = out["epoch_loss"], out["net"]
+    if launches < 1:
+        fail("ssd_vgg16: greedy_nms launched %d times" % launches)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail("ssd_vgg16: the loss did not fall: %s" % losses)
+    if out["kept"] < 1:
+        fail("ssd_vgg16: NMS kept no detection")
+
+    B, side = SSD_ARGS["batch_size"], SSD_ARGS["img_size"]
+    rng = np.random.RandomState(5)
+    batches = [ssd.synthetic_batch(rng, B, side, SSD_ARGS["num_classes"])
+               for _ in range(SSD_TIMED_STEPS)]
+    batches = [(mx.nd.array(x, ctx=dev), mx.nd.array(lab, ctx=dev))
+               for x, lab in batches]
+    params = {n: p for n, p in net.collect_params().items()
+              if not p._deferred_init}
+    trainer = mx.gluon.Trainer(params, "adam", {"learning_rate": 0.002})
+
+    def step(x, lab):
+        with mx.autograd.record():
+            loss = ssd.ssd_loss(*net(x), lab, B)
+        loss.backward()
+        trainer.step(B)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = [cuda_timed(lambda: step(*b)) for b in batches]
+    peak_step = torch.cuda.max_memory_allocated(dev)
+    device_ms, kernels = device_profile(lambda: step(*batches[0]))
+    x, lab = batches[-1][0]._data, batches[-1][1]._data
+    with torch.no_grad():
+        anchors, cls_f, loc_f = net(x)
+    if anchors.shape[1] != SSD_ANCHORS:
+        fail("ssd_vgg16: %d anchors, want %d" % (anchors.shape[1],
+                                                  SSD_ANCHORS))
+    target_attrs = {"negative_mining_ratio": 3.0,
+                    "negative_mining_thresh": 0.5}
+    cls_t = cls_f.transpose(1, 2)
+    probs = torch.softmax(cls_t, dim=1)
+    det_attrs = {"nms_threshold": SSD_NMS, "threshold": 0.01,
+                 "nms_topk": 100}
+    cand = contrib_ops.detection_candidates(det_attrs, probs, loc_f, anchors)
+    boxes_s, _, cls_s, valid_s = cand
+    sup = contrib_ops.nms_mask(boxes_s, cls_s, SSD_NMS)
+
+    def timed(fn):
+        with torch.no_grad():
+            return time_ms(fn, reps=5, calls=2)
+
+    parts = {
+        "trunk_ms": timed(lambda: net._pyramid(x)),
+        "forward_ms": timed(lambda: net(x)),
+        "multibox_target_ms": timed(lambda: get_op(
+            "_contrib_MultiBoxTarget").fcompute(target_attrs, anchors, lab,
+                                                cls_t)),
+        "multibox_detection_ms": timed(lambda: get_op(
+            "_contrib_MultiBoxDetection").fcompute(det_attrs, probs, loc_f,
+                                                   anchors)),
+        "detection_candidates_ms": timed(
+            lambda: contrib_ops.detection_candidates(det_attrs, probs, loc_f,
+                                                     anchors)),
+        "detection_mask_ms": timed(
+            lambda: contrib_ops.nms_mask(boxes_s, cls_s, SSD_NMS)),
+    }
+    parts["heads_ms"] = parts["forward_ms"] - parts["trunk_ms"]
+    med = median_of(step_ms)
+    phase("ssd_vgg16", classes=SSD_ARGS["num_classes"], side=side, batch=B,
+          anchors=int(anchors.shape[1]), epochs=SSD_EPOCHS, iters=SSD_ITERS,
+          epoch_loss=json.dumps([round(v, 4) for v in losses]),
+          map_before=round(out["map_before"], 4),
+          map_after=round(out["map_after"], 4), kept=out["kept"],
+          greedy_nms_launches=launches, main_s=round(main_s, 2),
+          peak_mem_main_gib=round(peak_main / 2 ** 30, 3),
+          step_ms=round(med, 3), images_s=round(B / med * 1e3, 1),
+          step_ms_all=json.dumps([round(v, 2) for v in step_ms]),
+          step_device_ms=round(device_ms, 3),
+          kernels_a_step=sum(kernels.values()),
+          peak_mem_step_gib=round(peak_step / 2 ** 30, 3),
+          **{k: round(v, 3) for k, v in parts.items()},
+          card='"%s"' % card)
+    numbers = nms_against_plain(nms_ops, sup, valid_s, "ssd", card)
+    phase("ssd_vgg16_scan", scan_ms=round(numbers["ms"], 4),
+          detection_mask_ms=round(parts["detection_mask_ms"], 3),
+          multibox_detection_ms=round(parts["multibox_detection_ms"], 3))
+    del sup, net, trainer, params, batches
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def rcnn_example(dev, card, nms_ops):
+    """Phase ``rcnn_example``: ``models/rcnn.py``'s ``main`` at the
+    example's widths, 2 epochs.  Gates: the loss falls, main finishes."""
+    from mxnet_tpu_torch.models import rcnn
+
+    nms_ops.greedy_nms.launches = 0
+    t0 = time.time()
+    out = rcnn.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = nms_ops.greedy_nms.launches
+    losses = out["epoch_loss"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail("rcnn_example: the loss did not fall: %s" % losses)
+    phase("rcnn_example", epoch_loss=json.dumps([round(v, 4)
+                                                 for v in losses]),
+          vote_accuracy=out["vote_accuracy"], map_03=round(out["map"], 4),
+          greedy_nms_launches=launches, seconds=round(time.time() - t0, 2),
+          card='"%s"' % card)
+    return launches
+
+
+def rcnn_ops_full(dev, card, nms_ops):
+    """Phase ``rcnn_ops_full``: ``_contrib_Proposal`` at Faster R-CNN's
+    test-time widths (1 x 18 x 37 x 62 scores, 9 anchors, 20,646 boxes,
+    top 6,000 into NMS 0.7, 300 out, min size 16), then ``ROIPooling`` and
+    ``_contrib_ROIAlign`` 7 x 7 at 1/16 over a 1 x 512 x 37 x 62 map with
+    its rois.  Held against the CPU's plain path on the same inputs: the
+    candidate boxes within ROIS_ATOL; the suppression masks equal but
+    where an IoU lies within IOU_TIE of the threshold (counted); the
+    card's keeps equal to the plain scan of the card's mask, and to the
+    CPU's own keeps where the masks agree; the card's rois within
+    ROIS_ATOL of the CPU's boxes selected by the card's keeps; the ROI
+    ops on all the rois equal to the CPU's.  Then the scan on the card's
+    mask against its plain loop."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import contrib_ops
+    from mxnet_tpu_torch.ops.registry import get_op as get
+
+    rng = np.random.RandomState(18)
+    C, H, W = RCNN_MAP
+    A = len(PROPOSAL_FULL["scales"]) * len(PROPOSAL_FULL["ratios"])
+    arrays = [rng.uniform(size=(1, 2 * A, H, W)).astype(np.float32),
+              (rng.randn(1, 4 * A, H, W) * 0.2).astype(np.float32),
+              np.array([RCNN_IM_INFO], np.float32)]
+    feat = np.maximum(rng.randn(1, C, H, W), 0).astype(np.float32)
+
+    def proposal(device):
+        score, deltas, info = (mx.nd.array(a, ctx=device) for a in arrays)
+        return mx.nd._contrib_Proposal(score, deltas, info, **PROPOSAL_FULL)
+
+    nms_ops.greedy_nms.launches = 0
+    rois = proposal(dev)
+    fmap = mx.nd.array(feat, ctx=dev)
+    pooled = mx.nd.ROIPooling(fmap, rois, **ROI_FULL)
+    aligned = mx.nd._contrib_ROIAlign(fmap, rois, **ROI_FULL)
+    torch.cuda.synchronize()
+    launches = nms_ops.greedy_nms.launches
+    if launches < 1:
+        fail("rcnn_ops_full: greedy_nms launched %d times" % launches)
+    rois_cpu = proposal("cpu")
+    tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+    fmap = torch.from_numpy(feat).to(dev)
+    times = {
+        "proposal_ms": time_ms(lambda: get("_contrib_Proposal").fcompute(
+            PROPOSAL_FULL, *tensors), reps=5, calls=2),
+        "roi_pooling_ms": time_ms(lambda: get("ROIPooling").fcompute(
+            ROI_FULL, fmap, rois._data), reps=5, calls=2),
+        "roi_align_ms": time_ms(lambda: get("_contrib_ROIAlign").fcompute(
+            ROI_FULL, fmap, rois._data), reps=5, calls=2)}
+    # the candidates and the masks, card against CPU
+    boxes, _ = contrib_ops.proposal_candidates(PROPOSAL_FULL, *tensors)
+    boxes_cpu, scores_cpu = contrib_ops.proposal_candidates(
+        PROPOSAL_FULL, *(torch.from_numpy(a) for a in arrays))
+    box_err = float((boxes.cpu() - boxes_cpu).abs().max())
+    thresh = PROPOSAL_FULL["threshold"]
+    sup = contrib_ops.proposal_mask(boxes, thresh)
+    sup_cpu = contrib_ops.proposal_mask(boxes_cpu, thresh)
+    differ = (sup.cpu() != sup_cpu).nonzero()
+    ties = 0
+    if len(differ):
+        b = boxes_cpu.double()[0]
+        j, i = differ[:, 1], differ[:, 2]
+        area = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
+        iw = (torch.minimum(b[j, 2], b[i, 2]) - torch.maximum(
+            b[j, 0], b[i, 0]) + 1).clamp_min(0)
+        ih = (torch.minimum(b[j, 3], b[i, 3]) - torch.maximum(
+            b[j, 1], b[i, 1]) + 1).clamp_min(0)
+        iou = iw * ih / (area[j] + area[i] - iw * ih)
+        ties = int(((iou - thresh).abs() < IOU_TIE).sum())
+        if ties != len(differ):
+            fail("rcnn_ops_full: %d mask entries differ card vs CPU, %d of "
+                 "them away from the threshold" % (len(differ),
+                                                    len(differ) - ties))
+    if box_err > ROIS_ATOL:
+        fail("rcnn_ops_full: candidate boxes %.3g px from the CPU's (bound "
+             "%g)" % (box_err, ROIS_ATOL))
+    init = torch.ones(sup.shape[:2], dtype=torch.bool, device=dev)
+    keep = nms_ops.greedy_nms(sup, init).cpu()
+    # the card's keeps are the scan of the card's mask, wherever the masks
+    # differ; they differ from the CPU's own only through a tied entry
+    scanned = int((keep != nms_ops.greedy_nms(sup.cpu(), init.cpu())).sum())
+    keep_cpu = nms_ops.greedy_nms(sup_cpu, init.cpu())
+    keep_diff = int((keep != keep_cpu).sum())
+    # the card's rois against the CPU's boxes selected by the card's keeps
+    # (the CPU's own rois, when no tie moved a keep)
+    want, _ = contrib_ops.proposal_select(PROPOSAL_FULL, boxes_cpu,
+                                          scores_cpu, keep)
+    rois_err = float((rois._data.cpu() - want).abs().max())
+    own_err = float(np.abs(rois.asnumpy() - rois_cpu.asnumpy()).max())
+    if (scanned or (keep_diff and not len(differ)) or rois_err > ROIS_ATOL
+            or (not keep_diff and own_err > ROIS_ATOL)):
+        fail("rcnn_ops_full: card vs CPU keep %d differ from the scan of "
+             "the card's mask, %d from the CPU's (%d tied mask entries), "
+             "rois %.3g / %.3g px (bound %g)" % (
+                 scanned, keep_diff, len(differ), rois_err, own_err,
+                 ROIS_ATOL))
+    # the ROI ops on the same rois, all of them, ROI_CHUNK at a time on the
+    # CPU
+    with torch.no_grad():
+        rois_host = rois._data.cpu()
+        feat_host = torch.from_numpy(feat)
+        pool_err = align_err = 0.0
+        for lo in range(0, len(rois_host), ROI_CHUNK):
+            part = rois_host[lo:lo + ROI_CHUNK]
+            pool_err = max(pool_err, float((get("ROIPooling").fcompute(
+                ROI_FULL, feat_host, part)
+                - pooled._data[lo:lo + ROI_CHUNK].cpu()).abs().max()))
+            align_err = max(align_err, float((get(
+                "_contrib_ROIAlign").fcompute(ROI_FULL, feat_host, part)
+                - aligned._data[lo:lo + ROI_CHUNK].cpu()).abs().max()))
+    if not (pool_err <= 1e-5 and align_err <= 1e-5):
+        fail("rcnn_ops_full: ROI ops card vs CPU %.3g / %.3g over 1e-5"
+             % (pool_err, align_err))
+    phase("rcnn_ops_full", boxes=H * W * A,
+          pre_nms=PROPOSAL_FULL["rpn_pre_nms_top_n"],
+          post_nms=PROPOSAL_FULL["rpn_post_nms_top_n"],
+          rois=tuple(rois.shape), pooled=tuple(pooled.shape),
+          greedy_nms_launches=launches,
+          **{k: round(v, 3) for k, v in times.items()},
+          candidate_box_err_px=box_err, rois_err_px=rois_err,
+          rois_vs_cpu_own_px=own_err, mask_entries_differ=len(differ),
+          iou_ties=ties, keep_differ=keep_diff, keep_vs_scan=scanned, roi_pooling_err=pool_err,
+          roi_align_err=align_err, card='"%s"' % card)
+    numbers = nms_against_plain(nms_ops, sup, init, "proposal", card)
+    return launches, numbers
+
+
+def detection_cases():
+    """(name, inputs, attrs, grads, tol) of each of the 17 names, at
+    tests/test_torch_detection_ops.py's shapes and bounds."""
+    rng = np.random.RandomState(18)
+
+    def f(*shape, low=-1.0, high=1.0):
+        return rng.uniform(low, high, shape).astype(np.float32)
+
+    def boxes(n, min_size=0.05):
+        a = rng.uniform(0, 1 - min_size, (n, 2))
+        b = np.minimum(a + rng.uniform(min_size, 0.5, (n, 2)), 1)
+        return np.concatenate([a, b], axis=1).astype(np.float32)
+
+    def rois(R, N, side):
+        b = rng.randint(0, N, (R, 1)).astype(np.float32)
+        xy = rng.uniform(-2, side - 3, (R, 2))
+        return np.concatenate([b, xy, xy + rng.uniform(1.5, side / 2, (
+            R, 2))], axis=1).astype(np.float32)
+
+    nn_tol, exact = (1e-4, 1e-5), (0.0, 0.0)
+    anchors = (np.array([[0, 0, 4, 4], [0, 0, 4, 2], [0, 0, 2, 4],
+                         [1, 1, 5, 5], [4, 4, 8, 8], [4, 4, 8, 6],
+                         [6, 6, 8, 8], [2, 0, 6, 4]], np.float32) / 8)[None]
+    probs = rng.uniform(0.05, 1.0, (2, 4, 8)).astype(np.float32)
+    probs /= probs.sum(axis=1, keepdims=True)
+    labels = np.full((3, 4, 5), -1.0, np.float32)
+    labels[0, :2, 0], labels[0, :2, 1:] = [1, 2], boxes(2, 0.2)
+    labels[1, :, 0], labels[1, :, 1:] = [0, 1, 2, 0], boxes(4, 0.2)
+    mb_anchors = boxes(12)[None]
+    nms_rows = np.concatenate([rng.randint(0, 2, (2, 6, 1)),
+                               np.round(rng.uniform(0, 1, (2, 6, 1)), 1),
+                               boxes(12).reshape(2, 6, 4)], axis=2)
+    cls = rng.uniform(size=(2, 6, 4, 5)).astype(np.float32)
+    bbox = (rng.randn(2, 12, 4, 5) * 0.1).astype(np.float32)
+    im_info = np.array([[64.0, 80.0, 1.0], [48.0, 64.0, 1.5]], np.float32)
+    prop = {"rpn_pre_nms_top_n": 40, "rpn_post_nms_top_n": 12,
+            "threshold": 0.6, "rpn_min_size": 4, "feature_stride": 16,
+            "scales": (1.0, 2.0, 4.0), "ratios": (1.0,)}
+    data, r = f(2, 3, 8, 9), rois(5, 2, 12)
+    ps_data, ps_rois = f(2, 18, 8, 8), rois(4, 2, 14)
+    theta = np.array([[0.9, 0.1, 0.05, -0.1, 1.1, -0.1],
+                      [1.2, -0.2, 0.1, 0.3, 0.8, 0.0]], np.float32)
+    return [
+        ("_contrib_MultiBoxPrior", [f(2, 3, 5, 4)],
+         {"sizes": (0.3, 0.5), "ratios": (1.0, 2.0, 0.5)}, [], nn_tol),
+        ("_contrib_box_iou", [boxes(4), boxes(3)], {}, [], nn_tol),
+        ("_contrib_MultiBoxTarget", [mb_anchors, labels, f(3, 4, 12)],
+         {"negative_mining_ratio": 3.0}, [], nn_tol),
+        ("_contrib_MultiBoxDetection",
+         [probs, np.zeros((2, 32), np.float32), anchors],
+         {"nms_threshold": 0.45}, [], nn_tol),
+        ("_contrib_box_nms", [nms_rows.astype(np.float32)],
+         {"overlap_thresh": 0.5}, [], exact),
+        ("ROIPooling", [data, r], {"pooled_size": (2, 3),
+                                   "spatial_scale": 0.5}, [0], nn_tol),
+        ("_contrib_ROIAlign", [data, r], {"pooled_size": (2, 2),
+                                          "spatial_scale": 0.5}, [0, 1],
+         nn_tol),
+        ("_contrib_PSROIPooling", [ps_data, ps_rois],
+         {"spatial_scale": 0.5, "output_dim": 2, "pooled_size": 3}, [0],
+         nn_tol),
+        ("_contrib_DeformablePSROIPooling",
+         [ps_data, ps_rois, f(4, 4, 2, 2, low=-0.5, high=0.5)],
+         {"spatial_scale": 0.5, "output_dim": 2, "group_size": 3,
+          "pooled_size": 3, "part_size": 2, "sample_per_part": 2,
+          "trans_std": 0.1}, [0, 2], nn_tol),
+        ("_contrib_DeformableConvolution",
+         [f(2, 4, 7, 7), f(2, 36, 3, 4, low=-1.5, high=1.5), f(6, 2, 3, 3),
+          f(6)], {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+                  "dilate": (2, 1), "num_filter": 6, "num_group": 2,
+                  "num_deformable_group": 2}, [0, 1, 2, 3], nn_tol),
+        ("_contrib_Proposal", [cls, bbox, im_info],
+         dict(prop, output_score=True), [], (1e-4, 1e-3)),
+        ("_contrib_MultiProposal", [cls, bbox, im_info], prop, [],
+         (1e-4, 1e-3)),
+        ("_contrib_bipartite_matching", [np.round(f(2, 3, 4, low=0), 1)],
+         {"threshold": 0.3}, [], exact),
+        ("Correlation", [f(2, 2, 6, 7), f(2, 2, 6, 7)],
+         {"kernel_size": 3, "max_displacement": 2, "stride1": 2,
+          "stride2": 2, "pad_size": 2, "is_multiply": False}, [0, 1],
+         nn_tol),
+        ("GridGenerator", [theta], {"transform_type": "affine",
+                                    "target_shape": (4, 5)}, [0], nn_tol),
+        ("BilinearSampler", [data, f(2, 2, 4, 4, low=-1.2, high=1.2)], {},
+         [0, 1], nn_tol),
+        ("SpatialTransformer", [data, theta], {"target_shape": (4, 4)},
+         [0, 1], nn_tol),
+    ]
+
+
+def detection_ops_vs_cpu(dev):
+    """Phase ``detection_ops_vs_cpu``: each of the 17 names through
+    ``mx.nd`` on the card against the CPU, values and input gradients
+    (seeded head gradients) within the CPU tests' bounds."""
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    worst, seen = {}, set()
+    for seed, (name, inputs, attrs, grads, tol) in enumerate(
+            detection_cases()):
+        seen.add(name)
+        want = nd_run(name, inputs, dict(attrs), grads, "cpu", seed)
+        got = nd_run(name, inputs, dict(attrs), grads, dev, seed)
+        for k, (g, w) in enumerate(zip(got[0] + got[1], want[0] + want[1])):
+            err = float(np.max(np.abs(g - w), initial=0.0))
+            worst[name] = max(worst.get(name, 0.0), err)
+            if g.shape != w.shape or not np.allclose(g, w, rtol=tol[0],
+                                                     atol=tol[1]):
+                fail("detection_ops_vs_cpu %s array %d: card vs CPU max "
+                     "abs err %.3g over rtol %g atol %g"
+                     % (name, k, err, *tol))
+    missing = {get_op(n) for n in DETECTION_OPS} - {get_op(n) for n in seen}
+    if missing:
+        fail("detection_ops_vs_cpu covers no case of %s" % sorted(
+            op.name for op in missing))
+    phase("detection_ops_vs_cpu", names=len(seen),
+          worst_abs_err=json.dumps(sorted(
+              worst.items(), key=lambda kv: -kv[1])[:6]))
+
+
+def detection_phases(cuda_ops, dev, card):
+    """The detection slice: ``ssd_vgg16``, ``rcnn_example``,
+    ``rcnn_ops_full`` and ``detection_ops_vs_cpu``.  Returns the scan
+    kernel's launches by path and its numbers at the SSD's and Proposal's
+    sizes; flash_attention must launch 0 times here
+    (``launches_detection``)."""
+    from mxnet_tpu_torch.ops import nms_ops
+
+    seconds = {}
+    reset_launches(cuda_ops)
+    t0 = time.time()
+    ssd_launches, ssd_numbers = ssd_vgg16(dev, card, nms_ops)
+    seconds["ssd_vgg16"] = round(time.time() - t0, 2)
+    t0 = time.time()
+    example_launches = rcnn_example(dev, card, nms_ops)
+    seconds["rcnn_example"] = round(time.time() - t0, 2)
+    t0 = time.time()
+    ops_launches, proposal_numbers = rcnn_ops_full(dev, card, nms_ops)
+    seconds["rcnn_ops_full"] = round(time.time() - t0, 2)
+    t0 = time.time()
+    detection_ops_vs_cpu(dev)
+    seconds["detection_ops_vs_cpu"] = round(time.time() - t0, 2)
+    phase("detection_seconds", **seconds)
+    launches = cuda_ops.flash_attention.launches
+    phase("launches_detection", flash_attention=launches,
+          greedy_nms_ssd=ssd_launches, greedy_nms_rcnn_example=example_launches,
+          greedy_nms_rcnn_ops=ops_launches)
+    if launches:
+        fail("the detection phases launched flash_attention %d times"
+             % launches)
+    return launches, {
+        "launches": ssd_launches + example_launches + ops_launches,
+        "launches_ssd": ssd_launches,
+        "launches_rcnn_example": example_launches,
+        "launches_rcnn_ops": ops_launches,
+        "ssd": ssd_numbers, "proposal": proposal_numbers}
+
+
 def main():
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -7321,6 +7861,7 @@ def main():
     launches_int8 = int8_phases(cuda_ops, dev, smi)
     launches_input = input_phases(cuda_ops, dev, smi)
     launches_rnn = rnn_phases(cuda_ops, dev, smi)
+    launches_detection, nms = detection_phases(cuda_ops, dev, smi)
 
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -7329,7 +7870,7 @@ def main():
               + launches_train_bf16 + launches_nd + launches_functional
               + launches_hybrid + launches_exported + launches_fleet
               + launches_word_lm + launches_optim + launches_int8
-              + launches_input + launches_rnn,
+              + launches_input + launches_rnn + launches_detection,
               "launches_serve": launches_serve,
               "launches_train": launches_train,
               "launches_hybrid_train": launches_hybrid,
@@ -7343,10 +7884,36 @@ def main():
               "launches_optim": launches_optim,
               "launches_int8": launches_int8,
               "launches_input": launches_input,
-              "launches_rnn": launches_rnn}
+              "launches_rnn": launches_rnn,
+              "launches_detection": launches_detection}
     kernel.update(numbers)
+    ssd_nms, prop_nms = nms["ssd"], nms["proposal"]
+    scan = {"name": "greedy_nms", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/greedy_nms.cu",
+            # no Pallas kernel: the lax.fori_loop NMS scans of
+            # _contrib_MultiBoxDetection (:253), _contrib_box_nms (:298)
+            # and _contrib_Proposal (:515)
+            "replaces": "mxnet_tpu/ops/contrib_ops.py:253",
+            "replaces_also": ["mxnet_tpu/ops/contrib_ops.py:298",
+                              "mxnet_tpu/ops/contrib_ops.py:515"],
+            "launches": nms["launches"],
+            "launches_ssd": nms["launches_ssd"],
+            "launches_rcnn_example": nms["launches_rcnn_example"],
+            "launches_rcnn_ops": nms["launches_rcnn_ops"],
+            # keep decisions that differ from the plain loop (bit-equal: 0)
+            "max_abs_err": max(ssd_nms["mismatches"],
+                               prop_nms["mismatches"]),
+            "shape": [ssd_nms["B"], ssd_nms["K"]],
+            "ms": ssd_nms["ms"], "plain_ms": ssd_nms["plain_ms"],
+            "bound_ms": ssd_nms["bound_ms"], "bound_by": "bytes",
+            "pack_read_ms": ssd_nms["pack_read_ms"],
+            "library_ms": None,
+            "shape_proposal": [prop_nms["B"], prop_nms["K"]],
+            "ms_proposal": prop_nms["ms"],
+            "plain_ms_proposal": prop_nms["plain_ms"],
+            "bound_ms_proposal": prop_nms["bound_ms"]}
     phase("total", seconds=time.time() - t0)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, scan]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

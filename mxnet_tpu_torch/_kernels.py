@@ -1,14 +1,16 @@
-"""Build and load the package's CUDA kernel (``csrc/flash_attention.cu``).
+"""Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The source compiles with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, loaded with ``ctypes``.  The library goes
-to ``build/mxnet_tpu_torch/`` at the root of the checkout, named by a hash
-of the source and the flags, so an edited source rebuilds and an unchanged
-one is reused.  A missing ``nvcc`` or a failed build raises with the
-compiler's output; nothing falls back to another implementation.  The
-compiler's output of a build that succeeds (``ptxas -v``: registers, spill
-bytes and static shared memory per kernel instance) is kept beside the
-library and read back by :func:`build_log`.
+Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into a shared
+library of its own with a plain C interface, loaded with ``ctypes``:
+``csrc/flash_attention.cu`` and ``csrc/greedy_nms.cu``.  A library goes to
+``build/mxnet_tpu_torch/`` at the root of the checkout, named by a hash of
+its source and the flags, so an edited source rebuilds only its own
+library and an unchanged one is reused.  A missing ``nvcc`` or a failed
+build raises with the compiler's output; nothing falls back to another
+implementation.  The compiler's output of a build that succeeds (``ptxas
+-v``: registers, spill bytes and static shared memory per kernel
+instance) is kept beside the library and read back by :func:`build_log`.
+:func:`build_all` starts one ``nvcc`` a source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -19,13 +21,15 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["load", "build_log", "library_path"]
+__all__ = ["load", "build_all", "build_log", "library_path", "SOURCES"]
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
               / "mxnet_tpu_torch")
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
@@ -34,13 +38,19 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
-# q, k, v, o, dtype, B, H, Tq, Tk, D, 9 strides, causal, causal_offset,
-# scale, stream
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 9 + [
-    _I, _I, _F, _P]
+# source name -> {C entry point: argtypes}
+SOURCES = {
+    # q, k, v, o, dtype, B, H, Tq, Tk, D, 9 strides, causal,
+    # causal_offset, scale, stream
+    "flash_attention": {"mxt_flash_attention_fwd": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 9 + [
+        _I, _I, _F, _P]},
+    # sup, init, keep, words, B, K, stream
+    "greedy_nms": {"mxt_greedy_nms": [_P, _P, _P, _P, _I, _I, _P]},
+}
 
-_lock = threading.Lock()
-_lib = None
+_locks = {name: threading.Lock() for name in SOURCES}
+_libs = {}
 
 
 def _nvcc():
@@ -55,24 +65,32 @@ def _nvcc():
                      % ", ".join(str(p) for p in candidates))
 
 
-def library_path():
-    """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()
+def _source(name):
+    if name not in SOURCES:
+        raise MXNetError("no CUDA source %r (have %s)"
+                         % (name, ", ".join(sorted(SOURCES))))
+    return _CSRC / ("%s.cu" % name)
+
+
+def library_path(name="flash_attention"):
+    """Where the library for source ``name``'s current text and the flags
+    lives."""
+    digest = hashlib.sha256(_source(name).read_bytes()
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / ("libflash_attention-%s.so" % digest[:16])
+    return _BUILD_DIR / ("lib%s-%s.so" % (name, digest[:16]))
 
 
-def _build(out):
+def _build(out, name):
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name("%s.tmp-%d" % (out.name, os.getpid()))
-    cmd = [_nvcc()] + _NVCC_FLAGS + ["-o", str(tmp), str(_SOURCE)]
+    cmd = [_nvcc()] + _NVCC_FLAGS + ["-o", str(tmp), str(_source(name))]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise MXNetError("building the flash-attention kernel failed "
-                         "(exit %d):\n%s\n%s"
-                         % (proc.returncode, " ".join(cmd), proc.stdout))
+        raise MXNetError("building the %s kernel failed (exit %d):\n%s\n%s"
+                         % (name, proc.returncode, " ".join(cmd),
+                            proc.stdout))
     _log_path(out).write_text(proc.stdout)
     os.replace(tmp, out)
     return proc.stdout
@@ -82,24 +100,41 @@ def _log_path(lib):
     return lib.with_suffix(".log")
 
 
-def build_log():
-    """What ``nvcc`` printed when it built the loaded library."""
-    load()
-    return _log_path(library_path()).read_text()
+def build_log(name="flash_attention"):
+    """What ``nvcc`` printed when it built source ``name``'s library."""
+    load(name)
+    return _log_path(library_path(name)).read_text()
 
 
-def load():
-    """The kernel's ctypes library, built on first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is None:
-            path = library_path()
+def load(name="flash_attention"):
+    """Source ``name``'s ctypes library, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    _source(name)
+    with _locks[name]:
+        if name not in _libs:
+            path = library_path(name)
             if not path.exists():
-                _build(path)
+                _build(path, name)
             lib = ctypes.CDLL(str(path))
-            lib.mxt_flash_attention_fwd.argtypes = _ARGTYPES
-            lib.mxt_flash_attention_fwd.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            for entry, argtypes in SOURCES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]
+
+
+def build_all():
+    """Build (or find) every source's library, one ``nvcc`` a source
+    started together; raises the first failure.  Returns ``{name:
+    seconds}``, each build's wall time."""
+    def timed(name):
+        t0 = time.time()
+        load(name)
+        return time.time() - t0
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = {name: pool.submit(timed, name) for name in SOURCES}
+    return {name: f.result() for name, f in futures.items()}

@@ -5,16 +5,18 @@
 (:137-160): :class:`Accuracy`, :class:`TopKAccuracy`, :class:`MAE`,
 :class:`MSE`, :class:`RMSE`, :class:`CrossEntropy`,
 :class:`NegativeLogLikelihood`; :class:`Perplexity` (:444-498),
-:class:`Loss` (:596-619) and :class:`F1`.
+:class:`Loss` (:596-619), :class:`F1`, and the detection metrics
+:class:`VOCMApMetric` (:648) and :class:`VOC07MApMetric` (:777).
 
 Labels and predictions are lists of tensors or NDArrays on any device.
 ``update`` computes a batch's statistic on the arrays' device and brings it
-to the host with one ``Tensor.item()`` a statistic.  Each metric but F1 also
-has a device twin, ``traced_update(labels, preds) -> (stat, count)``
-(:104-117): 0-d fp32 tensors, with no host fetch, which the compiled train
-step (``module/compiled_step.py``) adds into accumulators on the card and
-fetches only at ``metric_interval`` boundaries.  F1 has none, so a compiled
-fit with it falls back to the eager loop, as in the JAX package.
+to the host with one ``Tensor.item()`` a statistic.  Each metric but F1
+and the mAP metrics also has a device twin, ``traced_update(labels,
+preds) -> (stat, count)`` (:104-117): 0-d fp32 tensors, with no host
+fetch, which the compiled train step (``module/compiled_step.py``) adds
+into accumulators on the card and fetches only at ``metric_interval``
+boundaries.  F1 has none, so a compiled fit with it falls back to the
+eager loop, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
-           "NegativeLogLikelihood", "Loss", "check_label_shapes", "create",
-           "register"]
+           "NegativeLogLikelihood", "Loss", "VOCMApMetric", "VOC07MApMetric",
+           "check_label_shapes", "create", "register"]
 
 _METRIC_REGISTRY = {}
 _METRIC_REGISTRY_LOCK = threading.Lock()
@@ -429,3 +431,140 @@ class F1(EvalMetric):
         self.sum_metric, self.num_inst = 0.0, 0
         if hasattr(self, "_counts"):
             self._counts = dict.fromkeys(self._counts, 0)
+
+
+def _box_iou_one_to_many(box, boxes):
+    """IoU of one [xmin, ymin, xmax, ymax] box against an (n, 4) array."""
+    ix = numpy.maximum(0.0, numpy.minimum(boxes[:, 2], box[2])
+                       - numpy.maximum(boxes[:, 0], box[0]))
+    iy = numpy.maximum(0.0, numpy.minimum(boxes[:, 3], box[3])
+                       - numpy.maximum(boxes[:, 1], box[1]))
+    inter = ix * iy
+    union = ((box[2] - box[0]) * (box[3] - box[1])
+             + (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+             - inter)
+    return numpy.where(union > 1e-12, inter / numpy.maximum(union, 1e-12),
+                       0.0)
+
+
+def _host(x):
+    return numpy.asarray(_t(x).float().cpu().numpy()
+                         if isinstance(x, (torch.Tensor, NDArray)) else x)
+
+
+@_alias("voc_map", "mAP")
+class VOCMApMetric(EvalMetric):
+    """Mean average precision for detection (:648-775; example/ssd's
+    MApMetric semantics).  Host-side only: no device twin.
+
+    ``update(labels, preds)`` takes one batch: ``labels[0]`` (B, M, 5|6)
+    ground truths [cls, xmin, ymin, xmax, ymax, (difficult)], rows with
+    cls < 0 padding; ``preds[pred_idx]`` (B, N, 6) detections [cls, score,
+    xmin, ymin, xmax, ymax], rows with cls < 0 discarded (the
+    ``_contrib_MultiBoxDetection`` format).  Per class, detections match
+    ground truths score-descending at ``ovp_thresh`` IoU: the best-overlap
+    unmatched one is a true positive, a second match or a sub-threshold
+    overlap a false positive, a ``difficult`` one neither (unless
+    ``use_difficult``).  AP is the area under the interpolated precision
+    envelope; with ``class_names``, ``get`` gives each class's AP and the
+    mean."""
+
+    def __init__(self, ovp_thresh=0.5, use_difficult=False, class_names=None,
+                 pred_idx=0, name="mAP"):
+        self.ovp_thresh = float(ovp_thresh)
+        self.use_difficult = bool(use_difficult)
+        self.class_names = list(class_names) if class_names else None
+        self.pred_idx = int(pred_idx)
+        super().__init__(name, ovp_thresh=ovp_thresh,
+                         use_difficult=use_difficult,
+                         class_names=class_names, pred_idx=pred_idx)
+
+    def reset(self):
+        self.num_inst = 0
+        self.sum_metric = 0.0
+        # per class: (score, is_tp) match records, and the gt count
+        self._records = {}
+        self._gt_counts = {}
+
+    def update(self, labels, preds):
+        if not isinstance(labels, (list, tuple)):
+            labels = [labels]
+        if not isinstance(preds, (list, tuple)):
+            preds = [preds]
+        for label, pred in zip(_host(labels[0]), _host(preds[self.pred_idx])):
+            self._update_image(label[label[:, 0] >= 0],
+                               pred[pred[:, 0] >= 0])
+
+    def _update_image(self, gts, dets):
+        classes = set(numpy.unique(gts[:, 0]).astype(int))
+        classes.update(numpy.unique(dets[:, 0]).astype(int))
+        for cid in sorted(classes):
+            recs = self._records.setdefault(cid, [])
+            self._gt_counts.setdefault(cid, 0)
+            g = gts[gts[:, 0].astype(int) == cid]
+            difficult = (g[:, 5] > 0 if g.shape[1] >= 6
+                         else numpy.zeros(len(g), bool))
+            if self.use_difficult:
+                difficult = numpy.zeros(len(g), bool)
+            self._gt_counts[cid] += int((~difficult).sum())
+            d = dets[dets[:, 0].astype(int) == cid]
+            d = d[d[:, 1].argsort()[::-1]]
+            taken = numpy.zeros(len(g), bool)
+            for det in d:
+                if len(g) == 0:
+                    recs.append((float(det[1]), False))
+                    continue
+                ious = _box_iou_one_to_many(det[2:6], g[:, 1:5])
+                best = int(ious.argmax())
+                if ious[best] > self.ovp_thresh:
+                    if difficult[best]:
+                        continue   # neither a true nor a false positive
+                    recs.append((float(det[1]), not taken[best]))
+                    taken[best] = True
+                else:
+                    recs.append((float(det[1]), False))
+
+    def _average_precision(self, recall, precision):
+        """Area under the interpolated precision-recall envelope."""
+        r = numpy.concatenate(([0.0], recall, [1.0]))
+        p = numpy.concatenate(([0.0], precision, [0.0]))
+        p = numpy.maximum.accumulate(p[::-1])[::-1]
+        steps = numpy.nonzero(r[1:] != r[:-1])[0]
+        return float(numpy.sum((r[steps + 1] - r[steps]) * p[steps + 1]))
+
+    def _class_ap(self, cid):
+        recs, count = self._records[cid], self._gt_counts[cid]
+        if not recs and count == 0:
+            return None   # only difficult gts and no detection: not counted
+        if not recs:
+            return 0.0
+        order = sorted(recs, key=lambda r: -r[0])
+        flags = numpy.array([r[1] for r in order], dtype=float)
+        tp = numpy.cumsum(flags)
+        fp = numpy.cumsum(1.0 - flags)
+        recall = tp / count if count > 0 else tp * 0.0
+        precision = tp / numpy.maximum(tp + fp, 1e-12)
+        return self._average_precision(recall, precision)
+
+    def get(self):
+        aps = {cid: ap for cid in sorted(self._records)
+               for ap in [self._class_ap(cid)] if ap is not None}
+        mean = float(numpy.mean(list(aps.values()))) if aps else float("nan")
+        if self.class_names is None:
+            return (self.name, mean)
+        names = list(self.class_names) + [self.name]
+        values = [aps.get(i, float("nan"))
+                  for i in range(len(self.class_names))] + [mean]
+        return (names, values)
+
+
+@_alias("voc07_map")
+class VOC07MApMetric(VOCMApMetric):
+    """PASCAL VOC-07's 11-point interpolated AP (:777-789)."""
+
+    def _average_precision(self, recall, precision):
+        ap = 0.0
+        for t in numpy.arange(0.0, 1.1, 0.1):
+            mask = recall >= t
+            ap += (float(precision[mask].max()) if mask.any() else 0.0) / 11.0
+        return ap

@@ -3,9 +3,10 @@ small contrib ops (counterpart of ``mxnet_tpu/ops/misc_ops.py``):
 ``MakeLoss`` :25, ``SVMOutput`` :57, ``Crop`` :99, ``_histogram`` :125,
 ``_image_to_tensor`` :158, ``_image_normalize`` :169,
 ``_contrib_quadratic`` :183, ``_contrib_index_copy`` :193,
-``_contrib_AdaptiveAvgPooling2D`` :249 and ``_contrib_BilinearResize2D``
-:279.  ``_contrib_bipartite_matching`` and
-``_contrib_DeformablePSROIPooling`` wait for the detection slice.
+``_contrib_bipartite_matching`` :200, ``_contrib_AdaptiveAvgPooling2D``
+:249, ``_contrib_BilinearResize2D`` :279,
+``_contrib_DeformablePSROIPooling`` :315 and the alias
+``_contrib_MultiProposal`` of ``_contrib_Proposal`` :442.
 
 ``MakeLoss`` and ``SVMOutput`` carry gradients that are not their
 forward's, in ``torch.autograd.Function``s, as the JAX ops' ``custom_vjp``.
@@ -15,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .registry import register
+from .contrib_ops import div_const
+from .registry import alias, register
+from .tensor_ops import _index
 
 __all__ = []
 
@@ -244,3 +247,146 @@ def _bilinear_resize2d(attrs, data, like=None):
     top = rows0[:, :, :, x0] * (1 - wx) + rows0[:, :, :, x1] * wx
     bot = rows1[:, :, :, x0] * (1 - wx) + rows1[:, :, :, x1] * wx
     return top * (1 - wy) + bot * wy
+
+
+@register("_contrib_bipartite_matching", num_outputs=2)
+def _bipartite_matching(attrs, score):
+    """Greedy bipartite matching over the trailing (row, col) score matrix
+    (bounding_box.cc BipartiteMatching): edges in stably sorted score order
+    (descending unless ``is_ascend``); a row and a column pair up the first
+    time both are free and the score passes ``threshold``; ``topk`` caps
+    the matches.  Returns (row_marker, col_marker), the partner index or
+    -1.  The reference's R * C-step ``fori_loop`` is a Python loop here, of
+    about fourteen small ops a step over the whole batch."""
+    is_ascend = bool(attrs.get("is_ascend", False))
+    threshold = float(attrs["threshold"])
+    topk = int(attrs.get("topk", -1))
+    *batch, R, C = score.shape
+    s = score.reshape(-1, R * C)
+    Bf = s.shape[0]
+    dev = score.device
+    order = torch.argsort(s if is_ascend else -s, dim=1, stable=True)
+    limit = topk if topk >= 0 else R * C
+    rows = torch.arange(Bf, device=dev)
+    row_m = torch.full((Bf, R), -1, dtype=torch.int64, device=dev)
+    col_m = torch.full((Bf, C), -1, dtype=torch.int64, device=dev)
+    n = torch.zeros(Bf, dtype=torch.int64, device=dev)
+    for i in range(R * C):
+        e = order[:, i]
+        r, c = e // C, e % C
+        val = s[rows, e]
+        passes = (val <= threshold) if is_ascend else (val >= threshold)
+        ok = passes & (row_m[rows, r] < 0) & (col_m[rows, c] < 0) & (
+            n < limit)
+        row_m[rows, r] = torch.where(ok, c, row_m[rows, r])
+        col_m[rows, c] = torch.where(ok, r, col_m[rows, c])
+        n += ok.to(torch.int64)
+    return (row_m.to(score.dtype).reshape(tuple(batch) + (R,)),
+            col_m.to(score.dtype).reshape(tuple(batch) + (C,)))
+
+
+@register("_contrib_DeformablePSROIPooling", num_outputs=2)
+def _deformable_psroi_pooling(attrs, data, rois, trans=None):
+    """Deformable position-sensitive ROI pooling
+    (deformable_psroi_pooling.cu): each bin averages ``sample_per_part^2``
+    bilinear samples at positions shifted by the learned normalized
+    offsets in ``trans`` (times ``trans_std`` and the ROI's extent).
+    Returns (output, top_count), the count of in-bounds samples."""
+    scale = float(attrs.get("spatial_scale", 1.0))
+    out_dim = int(attrs["output_dim"])
+    pooled = int(attrs["pooled_size"])
+    gs = int(attrs.get("group_size", 0)) or pooled
+    part = int(attrs.get("part_size", 0)) or pooled
+    sp = int(attrs.get("sample_per_part", 1))
+    trans_std = float(attrs.get("trans_std", 0.0))
+    no_trans = bool(attrs.get("no_trans", False)) or trans is None
+    N, Cc, H, W = data.shape
+    R = rois.shape[0]
+    dev = data.device
+    batch_ind = _index(rois[:, 0])
+    # roi corners in feature coordinates, 0.5-centred like the CUDA kernel
+    x1 = torch.round(rois[:, 1]) * scale - 0.5
+    y1 = torch.round(rois[:, 2]) * scale - 0.5
+    x2 = (torch.round(rois[:, 3]) + 1.0) * scale - 0.5
+    y2 = (torch.round(rois[:, 4]) + 1.0) * scale - 0.5
+    roi_w = torch.maximum(x2 - x1, x2.new_full((), 0.1))
+    roi_h = torch.maximum(y2 - y1, y2.new_full((), 0.1))
+    bin_w = div_const(roi_w, pooled)
+    bin_h = div_const(roi_h, pooled)
+    sub_w = div_const(bin_w, sp)
+    sub_h = div_const(bin_h, sp)
+    ph = torch.arange(pooled, device=dev)
+    pw = torch.arange(pooled, device=dev)
+    part_h = (ph * part) // pooled
+    part_w = (pw * part) // pooled
+    if no_trans:
+        zeros = torch.zeros((R, pooled, pooled), device=dev)
+        ncls = 1
+    else:
+        ncls = trans.shape[1] // 2
+        tx_all = trans[:, 0::2, :, :] * trans_std
+        ty_all = trans[:, 1::2, :, :] * trans_std
+    cpc = max(out_dim // ncls, 1)
+    iy = torch.arange(sp, dtype=torch.float32, device=dev)
+    ix = torch.arange(sp, dtype=torch.float32, device=dev)
+    img = data[batch_ind]                               # (R, C, H, W)
+    flat_img = img.reshape(R, Cc, H * W)
+    gh = torch.clamp((ph * gs) // pooled, 0, gs - 1)
+    gw = torch.clamp((pw * gs) // pooled, 0, gs - 1)
+
+    def per_class(cls):
+        if no_trans:
+            txc = tyc = zeros
+        else:
+            txc = tx_all[:, cls][:, part_h][:, :, part_w]   # (R, P, P)
+            tyc = ty_all[:, cls][:, part_h][:, :, part_w]
+        wstart = (pw[None, :] * bin_w[:, None] + x1[:, None])[:, None, :] \
+            + txc * roi_w[:, None, None]
+        hstart = (ph[None, :] * bin_h[:, None] + y1[:, None])[:, :, None] \
+            + tyc * roi_h[:, None, None]
+        sw = wstart[..., None, None] + ix[None, :][None, None, None] \
+            * sub_w[:, None, None, None, None]              # (R,P,P,1,S)
+        sh = hstart[..., None, None] + iy[:, None][None, None, None] \
+            * sub_h[:, None, None, None, None]              # (R,P,P,S,1)
+        sw = sw.expand(sw.shape[:3] + (sp, sp))
+        sh = sh.expand(sh.shape[:3] + (sp, sp))
+        inb = (sw >= -0.5) & (sw <= W - 0.5) & (sh >= -0.5) & (
+            sh <= H - 0.5)
+        swc = torch.clamp(sw, 0.0, W - 1.0)
+        shc = torch.clamp(sh, 0.0, H - 1.0)
+        xx0 = _index(torch.floor(swc))
+        yy0 = _index(torch.floor(shc))
+        xx1 = torch.clamp(xx0 + 1, max=W - 1)
+        yy1 = torch.clamp(yy0 + 1, max=H - 1)
+        ax = swc - xx0
+        ay = shc - yy0
+        cch = (torch.arange(cpc, device=dev)[:, None, None] + cls * cpc) \
+            * gs * gs + gh[None, :, None] * gs + gw[None, None, :]
+
+        def sample(yyi, xxi):
+            lin = (yyi * W + xxi).reshape(R, 1, -1).expand(R, Cc, -1)
+            got = torch.gather(flat_img, 2, lin)
+            return got.reshape(R, Cc, pooled, pooled, sp, sp)
+
+        ay_, ax_ = ay[:, None], ax[:, None]
+        val = (sample(yy0, xx0) * (1 - ay_) * (1 - ax_)
+               + sample(yy0, xx1) * (1 - ay_) * ax_
+               + sample(yy1, xx0) * ay_ * (1 - ax_)
+               + sample(yy1, xx1) * ay_ * ax_)              # (R,C,P,P,S,S)
+        val = torch.where(inb[:, None], val, 0.0)
+        cnt = inb.sum(dim=(-1, -2)).to(data.dtype)          # (R, P, P)
+        summed = val.sum(dim=(-1, -2))                      # (R, C, P, P)
+        picked = summed[torch.arange(R, device=dev)[:, None, None, None],
+                        cch[None], ph[None, None, :, None],
+                        pw[None, None, None, :]]            # (R, cpc, P, P)
+        out = torch.where(cnt[:, None] > 0, picked / torch.clamp(
+            cnt[:, None], min=1.0), 0.0)
+        return out, cnt[:, None].expand(out.shape)
+
+    outs, counts = zip(*(per_class(cls) for cls in range(ncls)))
+    out = torch.cat(outs, dim=1)[:, :out_dim]
+    top_count = torch.cat(counts, dim=1)[:, :out_dim].to(data.dtype)
+    return out, top_count
+
+
+alias("_contrib_MultiProposal", "_contrib_Proposal")

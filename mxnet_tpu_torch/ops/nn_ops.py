@@ -6,9 +6,10 @@
 ``log_softmax`` :486, ``softmin`` :496, ``SoftmaxActivation`` :503,
 ``SoftmaxOutput`` :512, ``softmax_cross_entropy`` :633, the regression
 outputs :642-704, ``Dropout`` :711, ``SequenceMask``/``Last``/``Reverse``
-:735-785, ``RNN`` :786-900, ``CTCLoss`` :966 and
-``IdentityAttachKLSparseReg`` :1179.  ``_contrib_SyncBatchNorm`` and the
-spatial samplers are not ported yet.
+:735-785, ``RNN`` :786-900, ``Correlation`` :907, ``CTCLoss`` :966,
+``GridGenerator`` :1111, ``BilinearSampler`` :1137,
+``SpatialTransformer`` :1171 and ``IdentityAttachKLSparseReg`` :1179.
+``_contrib_SyncBatchNorm`` is not ported yet.
 
 The Gluon layers compute through the functions here
 (:func:`fully_connected`, :func:`convolution`, :func:`deconvolution`,
@@ -732,6 +733,122 @@ def _sequence_reverse(attrs, data, sequence_length=None):
 @register("IdentityAttachKLSparseReg")
 def _identity_attach_kl(attrs, data):
     return data
+
+
+# ---------------------------------------------------------------------------
+# the spatial samplers and the correlation layer (``:907``, ``:1111-1177``)
+
+@register("Correlation")
+def _correlation(attrs, data1, data2):
+    """FlowNet's correlation (correlation.cc): for every output position
+    and each of the (2 * max_displacement / stride2 + 1)^2 displacements,
+    the kernel window's product (or absolute difference) of data1 with
+    data2 displaced, averaged over kernel_size^2 * channels.  Each
+    displacement is one shifted elementwise pass and a strided window sum,
+    as in the JAX op."""
+    K = int(attrs.get("kernel_size", 1))
+    md = int(attrs.get("max_displacement", 1))
+    s1 = int(attrs.get("stride1", 1))
+    s2 = int(attrs.get("stride2", 1))
+    pad = int(attrs.get("pad_size", 0))
+    is_multiply = bool(attrs.get("is_multiply", True))
+    N, C, H, W = data1.shape
+    kr = (K - 1) // 2
+    border = md + kr
+    Hp, Wp = H + 2 * pad, W + 2 * pad
+    top_h = -(-(Hp - 2 * border) // s1)
+    top_w = -(-(Wp - 2 * border) // s1)
+    grid_r = md // s2
+    y_hi = md + (top_h - 1) * s1 + K
+    x_hi = md + (top_w - 1) * s1 + K
+    HA, WA = max(Hp, y_hi), max(Wp, x_hi)
+    t1 = data1.new_zeros((N, HA, WA, C))
+    t1[:, pad:pad + H, pad:pad + W] = _channel_last(data1)
+    t2 = data2.new_zeros((N, HA + 2 * md, WA + 2 * md, C))
+    t2[:, md + pad:md + pad + H, md + pad:md + pad + W] = \
+        _channel_last(data2)
+    scale = 1.0 / (K * K * C)
+    channels = []
+    for dy in range(-grid_r, grid_r + 1):
+        for dx in range(-grid_r, grid_r + 1):
+            shifted = t2[:, md + dy * s2:md + dy * s2 + HA,
+                         md + dx * s2:md + dx * s2 + WA]
+            if is_multiply:
+                prod = torch.sum(t1 * shifted, dim=-1)
+            else:
+                prod = torch.sum(torch.abs(t1 - shifted), dim=-1)
+            acc = 0.0
+            for h in range(K):
+                for w in range(K):
+                    acc = acc + prod[:, md + h:md + h + (top_h - 1) * s1 + 1:s1,
+                                     md + w:md + w + (top_w - 1) * s1 + 1:s1]
+            channels.append(acc * scale)
+    # channel order: (dy + grid_r) * D + (dx + grid_r)
+    return torch.stack(channels, dim=1)
+
+
+@register("GridGenerator")
+def _grid_generator(attrs, data):
+    """The sampling grid of an affine transform (data (N, 6)) over
+    ``target_shape``, or of a flow field (``transform_type='warp'``, data
+    (N, 2, H, W)), in [-1, 1] coordinates: (N, 2, H, W), x first."""
+    transform_type = attrs.get("transform_type", "affine")
+    if transform_type == "affine":
+        H, W = tuple(attrs.get("target_shape", (0, 0)))
+        f32 = dict(dtype=torch.float32, device=data.device)
+        gy, gx = torch.meshgrid(torch.linspace(-1, 1, H, **f32),
+                                torch.linspace(-1, 1, W, **f32),
+                                indexing="ij")
+        grid = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                            torch.ones_like(gx).reshape(-1)], dim=0)
+        theta = data.reshape(-1, 2, 3)
+        return torch.matmul(theta, grid).reshape(-1, 2, H, W)
+    flow = data
+    _, _, H, W = flow.shape
+    gy, gx = torch.meshgrid(
+        torch.arange(H, dtype=flow.dtype, device=flow.device),
+        torch.arange(W, dtype=flow.dtype, device=flow.device),
+        indexing="ij")
+    gx2 = (gx[None] + flow[:, 0]) / max((W - 1) / 2.0, 1) - 1
+    gy2 = (gy[None] + flow[:, 1]) / max((H - 1) / 2.0, 1) - 1
+    return torch.stack([gx2, gy2], dim=1)
+
+
+@register("BilinearSampler")
+def _bilinear_sampler(attrs, data, grid):
+    """Sample data (N, C, H, W) at grid (N, 2, Ho, Wo) in [-1, 1]
+    coordinates, bilinearly; a corner outside the map counts zero
+    (bilinear_sampler.cc:61-67), not the clamped edge."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1) * (w - 1) / 2.0
+    gy = (grid[:, 1] + 1) * (h - 1) / 2.0
+    x0 = _index(torch.floor(gx))
+    y0 = _index(torch.floor(gy))
+    x1, y1 = x0 + 1, y0 + 1
+    wx = (gx - x0)[..., None]
+    wy = (gy - y0)[..., None]
+    bidx = torch.arange(n, device=data.device).reshape(n, 1, 1)
+
+    def gather(xi, yi):
+        inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        vals = data[bidx, :, yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        return vals * inb[..., None].to(vals.dtype)    # (n, Ho, Wo, c)
+
+    out = (gather(x0, y0) * (1 - wx) * (1 - wy)
+           + gather(x1, y0) * wx * (1 - wy)
+           + gather(x0, y1) * (1 - wx) * wy
+           + gather(x1, y1) * wx * wy)
+    return _channel_first(out)
+
+
+@register("SpatialTransformer")
+def _spatial_transformer(attrs, data, loc):
+    """An affine ``GridGenerator`` over ``target_shape`` feeding
+    ``BilinearSampler``."""
+    grid = _grid_generator({"transform_type": "affine",
+                            "target_shape": tuple(attrs.get(
+                                "target_shape", (0, 0)))}, loc)
+    return _bilinear_sampler({}, data, grid)
 
 
 # ---------------------------------------------------------------------------

@@ -147,7 +147,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_kernels, "_DEFAULT_NVCC", tmp_path / "nvcc")
     with pytest.raises(MXNetError, match="nvcc not found"):
         _kernels._nvcc()
-    assert _kernels._SOURCE.is_file()
+    assert _kernels._source("flash_attention").is_file()
 
 
 def test_kernel_build_keeps_compiler_output(monkeypatch, tmp_path):
@@ -165,8 +165,38 @@ def test_kernel_build_keeps_compiler_output(monkeypatch, tmp_path):
     monkeypatch.setattr(_kernels, "_DEFAULT_NVCC", fake)
     monkeypatch.setattr(_kernels, "_BUILD_DIR", tmp_path / "build")
     lib = _kernels.library_path()
-    out = _kernels._build(lib)
+    out = _kernels._build(lib, "flash_attention")
     assert "Used 42 registers" in out and "-Xptxas -v" in out
     assert lib.read_text() == "lib"
     assert lib.with_suffix(".log").read_text() == out
     assert not [p for p in os.listdir(lib.parent) if ".tmp-" in p]
+
+
+def test_each_source_builds_into_its_own_library(monkeypatch, tmp_path):
+    """Each csrc/*.cu has its own library path, named by a hash of that
+    source and the flags: editing one source moves its path alone, and
+    changing the flags moves every path.  No build runs here."""
+    import shutil
+
+    from mxnet_tpu_torch import _kernels
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels._CSRC, csrc)
+    monkeypatch.setattr(_kernels, "_CSRC", csrc)
+    names = sorted(_kernels.SOURCES)
+    assert names == ["flash_attention", "greedy_nms"]
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == names
+    before = {n: _kernels.library_path(n) for n in names}
+    assert len(set(before.values())) == len(names)
+    for n in names:
+        assert before[n].name.startswith("lib%s-" % n)
+    with open(csrc / "greedy_nms.cu", "a") as f:
+        f.write("// edited\n")
+    after = {n: _kernels.library_path(n) for n in names}
+    assert after["greedy_nms"] != before["greedy_nms"]
+    assert after["flash_attention"] == before["flash_attention"]
+    monkeypatch.setattr(_kernels, "_NVCC_FLAGS",
+                        _kernels._NVCC_FLAGS + ["-lineinfo"])
+    flagged = {n: _kernels.library_path(n) for n in names}
+    assert all(flagged[n] != after[n] for n in names)
+    with pytest.raises(MXNetError, match="no CUDA source"):
+        _kernels.library_path("nope")
