@@ -115,16 +115,20 @@ flash_attention launches 0 times there (``launches_rnn``).  Last, object
 detection (``detection_phases``): ``models/ssd.py``'s ``main`` at
 VGG-16 / 300 x 300, 20 classes, B = 32 (7,096 anchors), Adam, mining 3:1,
 the loss falling over 2 epochs, a detection kept, the mAP before and
-after, then timed steps, a forward's breakdown and the NMS scan on a
-held-out batch's masks (``ssd_vgg16``); ``models/rcnn.py``'s ``main``
+after, then timed steps, a forward's breakdown and the NMS kernels on a
+held-out batch's candidates (``ssd_vgg16``); ``models/rcnn.py``'s ``main``
 (``rcnn_example``); Faster R-CNN's proposal layer at 600 x 1000 (20,646
 boxes, 6,000 into NMS 0.7, 300 out), ``ROIPooling`` and ``ROIAlign``
 7 x 7 over its rois, against the CPU (``rcnn_ops_full``); and the 17
 detection and spatial ops card against CPU (``detection_ops_vs_cpu``).
-The reference's greedy NMS is a ``lax.fori_loop``, not Pallas; here its
-scan is the hand-written ``csrc/greedy_nms.cu`` (the ``kernels`` line's
-``greedy_nms``: launches on each path, time at the SSD's and Proposal's
-sizes, bit-equal to its plain loop on their masks).
+The reference's greedy NMS is a ``lax.fori_loop``, not Pallas; here it
+is the hand-written ``csrc/greedy_nms.cu``, a kernel that computes the
+suppression relation from the boxes as 64-bit words and a scan over them
+(the ``kernels`` line's ``greedy_nms``: launches on each path, time at
+the SSD's and Proposal's sizes, the words equal to the torch-op mask's
+and the keeps to its plain loop, there and on an adversarial set of ties,
+infinities and NaNs in float32, float64, float16 and bfloat16:
+``greedy_nms_ties``).
 
     python3 chip_smoke.py
 
@@ -380,11 +384,14 @@ def ptxas_report(log):
 
 
 def nms_report(_kernels):
-    """The greedy NMS scan's build: each kernel's registers, spills and
-    static shared memory from ptxas; fails if the log names no kernel."""
+    """The greedy NMS kernels' build: each kernel's registers, spills and
+    static shared memory from ptxas; fails unless the log names the words
+    kernel's two forms and the scan."""
     instances = ptxas_report(_kernels.build_log("greedy_nms"))
-    if not instances:
-        fail("no ptxas report in the greedy_nms build log")
+    if not (any("nms_words" in k for k in instances)
+            and any("nms_scan" in k for k in instances)):
+        fail("the greedy_nms build log names %s, not nms_words and "
+             "nms_scan" % sorted(instances))
     phase("build", source="mxnet_tpu_torch/csrc/greedy_nms.cu",
           kernels=len(instances))
     for mangled, info in sorted(instances.items()):
@@ -7283,7 +7290,8 @@ def rnn_phases(cuda_ops, dev, card):
 # ---------------------------------------------------------------------------
 # the detection slice: SSD at VGG-16 / 300 x 300, example/rcnn, Faster
 # R-CNN's proposal and ROI ops at its test-time widths, the 17 ops card
-# against CPU, and the greedy NMS scan's kernel against its plain loop
+# against CPU, and the greedy NMS kernels against the torch-op mask and
+# its plain loop
 
 SSD_ARGS = dict(num_classes=20, backbone="vgg16", num_scales=3,
                 img_size=300, batch_size=32)
@@ -7312,43 +7320,213 @@ DETECTION_OPS = (
     "SpatialTransformer", "Correlation")
 
 
-def nms_bound(keep):
-    """(bound ms, the pack pass's read ms) of the scan that gave ``keep``
-    (B, K): the bytes the recurrence must move, each kept candidate j's
-    row past j (K - 1 - j bytes of sup: no other row decides a keep),
-    init read once and keep written once, over the card's memory rate;
-    beside it the strict upper triangle of sup, which this design's pack
-    pass reads whole."""
-    bytes_peak = card_peaks(torch.cuda.get_device_name(0))[3]
+# fp32 operations of one IoU test in each form (nms_ops.py's arithmetic;
+# each box's area is computed once, not per pair): min/max x4, the two
+# extents, their clamps, inter, the area sum, the union, (corner) its
+# floor, (proposal) the two +1s, the division, the comparison; the corner
+# form's id comparison where ids are read
+NMS_IOU_OPS = {"corner": 14, "proposal": 15}
+
+
+def nms_bound(boxes, ids, keep, form):
+    """The least time of greedy NMS from the boxes on this run's data: the
+    larger of (operations) the IoUs the recurrence needs, each kept row j
+    against every i > j, at NMS_IOU_OPS of fp32 work each over the card's
+    fp32 CUDA-core rate, and (bytes) boxes, ids and init read once and keep
+    written once over its memory rate.  Beside them, the earlier design's
+    bound, the scan of a given mask (each kept row's bytes of sup past its
+    diagonal, init and keep), for continuity."""
+    peaks = card_peaks(torch.cuda.get_device_name(0))
     B, K = keep.shape
     tail = K - 1 - torch.arange(K, device=keep.device)
-    need = int((keep * tail).sum()) + 2 * B * K
-    return need / bytes_peak * 1e3, B * K * (K - 1) // 2 / bytes_peak * 1e3
+    pairs = int((keep * tail).sum())
+    ops = pairs * (NMS_IOU_OPS[form] + (ids is not None))
+    nbytes = boxes.numel() * boxes.element_size() + (
+        ids.numel() * ids.element_size() if ids is not None else 0) + 2 * B * K
+    ops_ms, bytes_ms = ops / peaks[0] * 1e3, nbytes / peaks[3] * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
+                pairs_needed=pairs,
+                scan_of_mask_bound_ms=(pairs + 2 * B * K) / peaks[3] * 1e3)
 
 
-def nms_against_plain(nms_ops, sup, init, label, card):
-    """The kernel against its plain loop on one mask on the card: keep
-    masks bit-equal; both timed (the plain loop's K steps of small ops)."""
-    keep = nms_ops.greedy_nms(sup, init)
-    want = nms_ops.greedy_nms_reference(sup, init)
+def nms_words_mismatches(words, want):
+    """Words that differ on and above each row's diagonal word (the words
+    kernel writes no other)."""
+    K, W = words.shape[1:]
+    first = (torch.arange(K, device=words.device) // 64)[None, :, None]
+    upper = torch.arange(W, device=words.device)[None, None, :] >= first
+    return int(((words != want) & upper).sum())
+
+
+def nms_checks(nms_ops, boxes, ids, init, thresh, form, label):
+    """The kernels on one input on the card against the torch-op mask built
+    on the card from the same boxes: the words kernel's words against
+    ``pack_words`` of it word for word, the pair's keeps against the plain
+    scan of it.  Returns (keep, sup, mismatched words, mismatched keeps);
+    fails on any mismatch."""
+    keep = nms_ops.greedy_nms(boxes, ids, init, thresh, form=form)
+    words = nms_ops._words_cuda(boxes, ids, thresh, form)
+    sup = nms_ops.suppression_mask(boxes, ids, thresh, form=form)
+    bad_words = nms_words_mismatches(words, nms_ops.pack_words(sup))
+    bad_keeps = int((keep != nms_ops.greedy_nms_reference(sup, init)).sum())
     torch.cuda.synchronize()
-    mismatches = int((keep != want).sum())
-    if mismatches:
-        fail("greedy_nms %s: %d keep decisions differ from the plain loop"
-             % (label, mismatches))
+    if bad_words or bad_keeps:
+        fail("greedy_nms %s: %d words differ from the torch-op mask's, %d "
+             "keep decisions from its plain scan" % (label, bad_words,
+                                                     bad_keeps))
+    return keep, sup, bad_words, bad_keeps
+
+
+def graph_ms(fn, calls=10):
+    """The card's time of one call of ``fn``: ``calls`` calls captured in a
+    CUDA graph, the graph replayed (``time_ms``), divided by ``calls``.
+    The host's part of the call (the wrapper's allocation and ctypes call)
+    is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, reps=10, calls=1) / calls
+    del graph
+    return ms
+
+
+def nms_kernel_ms(nms_ops, boxes, ids, init, thresh, form):
+    """(words ms, scan ms): each kernel's own time through its launcher
+    (``graph_ms``; torch.profiler's trace held none of these kernels in an
+    H100 run)."""
+    words = nms_ops._words_cuda(boxes, ids, thresh, form)
+    return (graph_ms(lambda: nms_ops._words_cuda(boxes, ids, thresh, form)),
+            graph_ms(lambda: nms_ops._scan_cuda(words, init)))
+
+
+def nms_against_plain(nms_ops, boxes, ids, init, thresh, form, label, card):
+    """Phase ``greedy_nms_<label>``: the kernel pair on one input on the
+    card (``nms_checks``); its time as a call (CUDA events around
+    ``greedy_nms``, the host's part included) and each kernel's own
+    (``nms_kernel_ms``); the plain loop's time on the torch-op mask, the
+    torch-op mask's time, and the bound."""
+    keep, sup, bad_words, bad_keeps = nms_checks(
+        nms_ops, boxes, ids, init, thresh, form, label)
     B, K = init.shape
-    ms = time_ms(lambda: nms_ops.greedy_nms(sup, init), reps=10, calls=4)
+    W = (K + 63) // 64
+    ms = time_ms(lambda: nms_ops.greedy_nms(boxes, ids, init, thresh,
+                                            form=form), reps=10, calls=4)
+    words_ms, scan_ms = nms_kernel_ms(nms_ops, boxes, ids, init, thresh,
+                                      form)
     plain_ms = time_ms(lambda: nms_ops.greedy_nms_reference(sup, init),
                        reps=2, calls=1)
-    bound_ms, pack_ms = nms_bound(keep)
-    numbers = dict(B=B, K=K, kept=int(keep.sum()), candidates=int(init.sum()),
-                   suppressing_pairs=int(sup.triu(1).sum()),
-                   mismatches=mismatches, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by="bytes",
-                   pack_read_ms=pack_ms, chain_steps=K,
-                   block_steps=(K + 63) // 64)
+    del sup
+    torch_mask_ms = time_ms(lambda: nms_ops.suppression_mask(
+        boxes, ids, thresh, form=form), reps=2, calls=1)
+    numbers = dict(B=B, K=K, form='"%s"' % form, thresh=thresh,
+                   kept=int(keep.sum()), candidates=int(init.sum()),
+                   mismatched_words=bad_words, mismatches=bad_keeps,
+                   ms=ms, words_ms=words_ms, scan_ms=scan_ms,
+                   plain_ms=plain_ms, torch_mask_ms=torch_mask_ms,
+                   words_ious=B * W * (W + 1) // 2 * 64 * 64,
+                   block_steps=W, **nms_bound(boxes, ids, keep, form))
     phase("greedy_nms_" + label, **numbers, card='"%s"' % card)
     return numbers
+
+
+NMS_TIE_DTYPES = ("float64", "float16", "bfloat16")
+
+
+def nms_tie_cases():
+    """(label, boxes (B, K, 4), ids (B, K) or None, init, thresh, form,
+    dtype) of the adversarial set: pairs whose IoU is exactly the threshold
+    (dyadic coordinates: corner [0,0,4,4] / [0,0,4,2] at 0.5, proposal
+    [0,0,9,9] / [0,0,9,6] at 0.7 and [0,0,9,9] / [0,0,2,9] at 0.3), a pair
+    whose IoU rounds to exactly float32(0.3) ([0,0,6.5,1] / [3.5,0,10,1],
+    inter 3, union 10), zero-area and inverted boxes, +-inf and NaN
+    coordinates, equal, unequal and NaN ids; the rest quarter-pixel boxes
+    around them in a seeded order, K 70, 200 (B = 3) and 1; thresholds
+    inside and outside the kernel's quotient-free range (0 and 1e-30); in
+    float32, and (K 70 and 200) in the other dtypes of NMS_TIE_DTYPES,
+    every coordinate exact in each, with ids of the boxes' dtype."""
+    inf, nan = np.inf, np.nan
+    special = [[0, 0, 4, 4], [0, 0, 4, 2], [0, 0, 6.5, 1], [3.5, 0, 10, 1],
+               [0, 0, 9, 9], [0, 0, 9, 6], [0, 0, 2, 9], [1, 1, 1, 1],
+               [2, 2, 2, 5], [3, 3, 1, 1], [5, 0, 4, 4], [-inf, 0, inf, 1],
+               [0, -inf, 1, inf], [-inf, -inf, inf, inf],
+               [inf, inf, inf, inf], [-inf, -inf, -inf, -inf],
+               [nan, 0, 1, 1], [0, 0, nan, 1], [nan, nan, nan, nan]]
+    rng = np.random.RandomState(19)
+
+    def make(B, K):
+        lo = rng.randint(0, 40, (B, K, 2)) / 4
+        boxes = np.concatenate([lo, lo + rng.randint(0, 32, (B, K, 2)) / 4],
+                               axis=2)
+        for b in range(B):
+            n = min(K, len(special))
+            at = rng.permutation(K)[:n]
+            boxes[b, at] = np.asarray(special[:n])
+        ids = rng.randint(0, 2, (B, K)).astype(np.float64)
+        ids[:, rng.randint(0, K)] = nan
+        init = rng.uniform(size=(B, K)) < 0.9
+        return (boxes.astype(np.float32), ids.astype(np.float32), init)
+
+    cases = []
+    for B, K in ((1, 70), (3, 200), (1, 1)):
+        boxes, ids, init = make(B, K)
+        for thresh, form, with_ids in ((0.5, "corner", True),
+                                       (0.5, "corner", False),
+                                       (0.3, "corner", True),
+                                       (0.3, "corner", False),
+                                       (0.0, "corner", True),
+                                       (1e-30, "corner", False),
+                                       (0.7, "proposal", False),
+                                       (0.3, "proposal", False),
+                                       (-0.5, "proposal", False)):
+            cases.append(("%s_%s%s_K%d" % (form, thresh,
+                                           "" if with_ids else "_noids", K),
+                          boxes, ids if with_ids else None, init, thresh,
+                          form, "float32"))
+        for dtype in NMS_TIE_DTYPES if K > 1 else ():
+            for thresh, form, with_ids in ((0.5, "corner", True),
+                                           (0.3, "corner", False),
+                                           (0.7, "proposal", False)):
+                cases.append(("%s_%s%s_K%d_%s" % (
+                    form, thresh, "" if with_ids else "_noids", K, dtype),
+                    boxes, ids if with_ids else None, init, thresh, form,
+                    dtype))
+    return cases
+
+
+def greedy_nms_ties(dev, card, nms_ops):
+    """Phase ``greedy_nms_ties``: the kernel pair on every case of
+    ``nms_tie_cases`` on the card, its words against ``pack_words`` of the
+    torch-op mask built on the card and its keeps against that mask's
+    plain scan (``nms_checks``), and its keeps against the CPU's own
+    (``greedy_nms`` on CPU tensors): every operation is exact or rounded
+    to the dtype on both, so they must agree exactly."""
+    cases = nms_tie_cases()
+    kept = bad_words = bad_keeps = 0
+    for label, boxes, ids, init, thresh, form, dtype in cases:
+        dtype = getattr(torch, dtype)
+        arrays = [torch.from_numpy(boxes).to(dtype),
+                  None if ids is None else torch.from_numpy(ids).to(dtype),
+                  torch.from_numpy(init)]
+        card_arrays = [a.to(dev) if a is not None else None for a in arrays]
+        keep, _, words, keeps = nms_checks(
+            nms_ops, *card_arrays, thresh, form, "ties " + label)
+        keep_cpu = nms_ops.greedy_nms(*arrays, thresh, form=form)
+        differ = int((keep.cpu() != keep_cpu).sum())
+        if differ:
+            fail("greedy_nms_ties %s: %d keep decisions card vs CPU"
+                 % (label, differ))
+        kept += int(keep_cpu.sum())
+        bad_words += words
+        bad_keeps += keeps + differ
+    phase("greedy_nms_ties", cases=len(cases),
+          dtypes=json.dumps(sorted({c[-1] for c in cases})), kept=kept,
+          mismatched_words=bad_words, mismatches=bad_keeps,
+          card='"%s"' % card)
 
 
 def ssd_argv(dev):
@@ -7369,9 +7547,11 @@ def ssd_vgg16(dev, card, nms_ops):
     batches, mAP (NMS 0.45, top 100) on SSD_EVAL_BATCHES held-out batches
     before and after.  The kernel's launches are those of this run.  Then
     SSD_TIMED_STEPS steps on staged batches (CUDA events), a forward's
-    breakdown, one step profiled, and the scan on a held-out batch's mask
-    against its plain loop.  Gates: 7,096 anchors, the last epoch's loss
-    below the first, a detection kept after NMS."""
+    breakdown, one step profiled, the detection call's own peak memory,
+    and the NMS kernels on a held-out batch's candidates against the
+    torch-op mask and its plain loop (``greedy_nms_ssd``).  Gates: 7,096
+    anchors, the last epoch's loss below the first, a detection kept after
+    NMS, the detection call's peak under a K x K mask's B * K^2 bytes."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.models import ssd
     from mxnet_tpu_torch.ops import contrib_ops
@@ -7429,11 +7609,25 @@ def ssd_vgg16(dev, card, nms_ops):
                  "nms_topk": 100}
     cand = contrib_ops.detection_candidates(det_attrs, probs, loc_f, anchors)
     boxes_s, _, cls_s, valid_s = cand
-    sup = contrib_ops.nms_mask(boxes_s, cls_s, SSD_NMS)
+    detection = get_op("_contrib_MultiBoxDetection").fcompute
 
     def timed(fn):
         with torch.no_grad():
             return time_ms(fn, reps=5, calls=2)
+
+    # the detection call's own peak device memory: B * K^2 bytes or more
+    # would mean that the CUDA path still builds a K x K mask
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        detection(det_attrs, probs, loc_f, anchors)
+    torch.cuda.synchronize()
+    peak_detection = torch.cuda.max_memory_allocated(dev) - held
+    mask_bytes = B * SSD_ANCHORS ** 2
+    if peak_detection >= mask_bytes:
+        fail("ssd_vgg16: the detection call peaks at %d bytes, a K x K "
+             "mask's %d or more" % (peak_detection, mask_bytes))
 
     parts = {
         "trunk_ms": timed(lambda: net._pyramid(x)),
@@ -7441,15 +7635,16 @@ def ssd_vgg16(dev, card, nms_ops):
         "multibox_target_ms": timed(lambda: get_op(
             "_contrib_MultiBoxTarget").fcompute(target_attrs, anchors, lab,
                                                 cls_t)),
-        "multibox_detection_ms": timed(lambda: get_op(
-            "_contrib_MultiBoxDetection").fcompute(det_attrs, probs, loc_f,
-                                                   anchors)),
+        "multibox_detection_ms": timed(lambda: detection(
+            det_attrs, probs, loc_f, anchors)),
         "detection_candidates_ms": timed(
             lambda: contrib_ops.detection_candidates(det_attrs, probs, loc_f,
                                                      anchors)),
-        "detection_mask_ms": timed(
-            lambda: contrib_ops.nms_mask(boxes_s, cls_s, SSD_NMS)),
     }
+    numbers = nms_against_plain(nms_ops, boxes_s, cls_s, valid_s, SSD_NMS,
+                                "corner", "ssd", card)
+    # the words kernel: the suppression relation of the call's NMS
+    parts["detection_mask_ms"] = numbers["words_ms"]
     parts["heads_ms"] = parts["forward_ms"] - parts["trunk_ms"]
     med = median_of(step_ms)
     phase("ssd_vgg16", classes=SSD_ARGS["num_classes"], side=side, batch=B,
@@ -7466,11 +7661,16 @@ def ssd_vgg16(dev, card, nms_ops):
           peak_mem_step_gib=round(peak_step / 2 ** 30, 3),
           **{k: round(v, 3) for k, v in parts.items()},
           card='"%s"' % card)
-    numbers = nms_against_plain(nms_ops, sup, valid_s, "ssd", card)
-    phase("ssd_vgg16_scan", scan_ms=round(numbers["ms"], 4),
-          detection_mask_ms=round(parts["detection_mask_ms"], 3),
-          multibox_detection_ms=round(parts["multibox_detection_ms"], 3))
-    del sup, net, trainer, params, batches
+    numbers.update(detection_call_ms=parts["multibox_detection_ms"],
+                   detection_peak_bytes=peak_detection)
+    phase("ssd_vgg16_scan", nms_ms=round(numbers["ms"], 4),
+          scan_ms=round(numbers["scan_ms"], 4),
+          detection_mask_ms=round(parts["detection_mask_ms"], 4),
+          torch_mask_ms=round(numbers["torch_mask_ms"], 3),
+          multibox_detection_ms=round(parts["multibox_detection_ms"], 3),
+          detection_peak_gib=round(peak_detection / 2 ** 30, 3),
+          mask_gib=round(mask_bytes / 2 ** 30, 3))
+    del net, trainer, params, batches
     torch.cuda.empty_cache()
     return launches, numbers
 
@@ -7507,8 +7707,9 @@ def rcnn_ops_full(dev, card, nms_ops):
     card's keeps equal to the plain scan of the card's mask, and to the
     CPU's own keeps where the masks agree; the card's rois within
     ROIS_ATOL of the CPU's boxes selected by the card's keeps; the ROI
-    ops on all the rois equal to the CPU's.  Then the scan on the card's
-    mask against its plain loop."""
+    ops on all the rois equal to the CPU's.  Then the NMS kernels on the
+    card's candidates against the torch-op mask and its plain loop
+    (``greedy_nms_proposal``)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import contrib_ops
     from mxnet_tpu_torch.ops.registry import get_op as get
@@ -7550,8 +7751,8 @@ def rcnn_ops_full(dev, card, nms_ops):
         PROPOSAL_FULL, *(torch.from_numpy(a) for a in arrays))
     box_err = float((boxes.cpu() - boxes_cpu).abs().max())
     thresh = PROPOSAL_FULL["threshold"]
-    sup = contrib_ops.proposal_mask(boxes, thresh)
-    sup_cpu = contrib_ops.proposal_mask(boxes_cpu, thresh)
+    sup = nms_ops.proposal_mask(boxes, thresh)
+    sup_cpu = nms_ops.proposal_mask(boxes_cpu, thresh)
     differ = (sup.cpu() != sup_cpu).nonzero()
     ties = 0
     if len(differ):
@@ -7572,11 +7773,15 @@ def rcnn_ops_full(dev, card, nms_ops):
         fail("rcnn_ops_full: candidate boxes %.3g px from the CPU's (bound "
              "%g)" % (box_err, ROIS_ATOL))
     init = torch.ones(sup.shape[:2], dtype=torch.bool, device=dev)
-    keep = nms_ops.greedy_nms(sup, init).cpu()
-    # the card's keeps are the scan of the card's mask, wherever the masks
-    # differ; they differ from the CPU's own only through a tied entry
-    scanned = int((keep != nms_ops.greedy_nms(sup.cpu(), init.cpu())).sum())
-    keep_cpu = nms_ops.greedy_nms(sup_cpu, init.cpu())
+    keep = nms_ops.greedy_nms(boxes, None, init, thresh,
+                              form="proposal").cpu()
+    # the card's keeps are the scan of the card's torch-op mask, wherever
+    # the masks differ; they differ from the CPU's own only through a tied
+    # entry
+    scanned = int((keep != nms_ops.greedy_nms_reference(
+        sup.cpu(), init.cpu())).sum())
+    keep_cpu = nms_ops.greedy_nms_reference(sup_cpu, init.cpu())
+    del sup
     keep_diff = int((keep != keep_cpu).sum())
     # the card's rois against the CPU's boxes selected by the card's keeps
     # (the CPU's own rois, when no tie moved a keep)
@@ -7618,7 +7823,9 @@ def rcnn_ops_full(dev, card, nms_ops):
           rois_vs_cpu_own_px=own_err, mask_entries_differ=len(differ),
           iou_ties=ties, keep_differ=keep_diff, keep_vs_scan=scanned, roi_pooling_err=pool_err,
           roi_align_err=align_err, card='"%s"' % card)
-    numbers = nms_against_plain(nms_ops, sup, init, "proposal", card)
+    numbers = nms_against_plain(nms_ops, boxes, None, init, thresh,
+                                "proposal", "proposal", card)
+    numbers["proposal_op_ms"] = times["proposal_ms"]
     return launches, numbers
 
 
@@ -7743,9 +7950,9 @@ def detection_ops_vs_cpu(dev):
 
 def detection_phases(cuda_ops, dev, card):
     """The detection slice: ``ssd_vgg16``, ``rcnn_example``,
-    ``rcnn_ops_full`` and ``detection_ops_vs_cpu``.  Returns the scan
-    kernel's launches by path and its numbers at the SSD's and Proposal's
-    sizes; flash_attention must launch 0 times here
+    ``rcnn_ops_full``, ``greedy_nms_ties`` and ``detection_ops_vs_cpu``.
+    Returns the NMS kernels' launches by path and their numbers at the
+    SSD's and Proposal's sizes; flash_attention must launch 0 times here
     (``launches_detection``)."""
     from mxnet_tpu_torch.ops import nms_ops
 
@@ -7760,6 +7967,9 @@ def detection_phases(cuda_ops, dev, card):
     t0 = time.time()
     ops_launches, proposal_numbers = rcnn_ops_full(dev, card, nms_ops)
     seconds["rcnn_ops_full"] = round(time.time() - t0, 2)
+    t0 = time.time()
+    greedy_nms_ties(dev, card, nms_ops)
+    seconds["greedy_nms_ties"] = round(time.time() - t0, 2)
     t0 = time.time()
     detection_ops_vs_cpu(dev)
     seconds["detection_ops_vs_cpu"] = round(time.time() - t0, 2)
@@ -7896,22 +8106,34 @@ def main():
             "replaces": "mxnet_tpu/ops/contrib_ops.py:253",
             "replaces_also": ["mxnet_tpu/ops/contrib_ops.py:298",
                               "mxnet_tpu/ops/contrib_ops.py:515"],
+            # calls of greedy_nms: each launches the words kernel, then
+            # the scan
             "launches": nms["launches"],
+            "launches_count": "calls of the nms_words + nms_scan pair",
             "launches_ssd": nms["launches_ssd"],
             "launches_rcnn_example": nms["launches_rcnn_example"],
             "launches_rcnn_ops": nms["launches_rcnn_ops"],
-            # keep decisions that differ from the plain loop (bit-equal: 0)
-            "max_abs_err": max(ssd_nms["mismatches"],
-                               prop_nms["mismatches"]),
+            # keep decisions and words that differ from the torch-op
+            # mask's plain scan and packing (bit-equal: 0)
+            "max_abs_err": max(ssd_nms["mismatches"], prop_nms["mismatches"],
+                               ssd_nms["mismatched_words"],
+                               prop_nms["mismatched_words"]),
             "shape": [ssd_nms["B"], ssd_nms["K"]],
-            "ms": ssd_nms["ms"], "plain_ms": ssd_nms["plain_ms"],
-            "bound_ms": ssd_nms["bound_ms"], "bound_by": "bytes",
-            "pack_read_ms": ssd_nms["pack_read_ms"],
+            "ms": ssd_nms["ms"], "words_ms": ssd_nms["words_ms"],
+            "scan_ms": ssd_nms["scan_ms"],
+            "detection_call_ms": ssd_nms["detection_call_ms"],
+            "plain_ms": ssd_nms["plain_ms"],
+            "bound_ms": ssd_nms["bound_ms"],
+            "bound_by": ssd_nms["bound_by"],
             "library_ms": None,
             "shape_proposal": [prop_nms["B"], prop_nms["K"]],
             "ms_proposal": prop_nms["ms"],
+            "words_ms_proposal": prop_nms["words_ms"],
+            "scan_ms_proposal": prop_nms["scan_ms"],
+            "proposal_op_ms": prop_nms["proposal_op_ms"],
             "plain_ms_proposal": prop_nms["plain_ms"],
-            "bound_ms_proposal": prop_nms["bound_ms"]}
+            "bound_ms_proposal": prop_nms["bound_ms"],
+            "bound_by_proposal": prop_nms["bound_by"]}
     phase("total", seconds=time.time() - t0)
     print(json.dumps({"kernels": [kernel, scan]}))
     print(smi)

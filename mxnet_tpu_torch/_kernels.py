@@ -36,8 +36,8 @@ _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_float)
+_P, _I, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float, ctypes.c_double)
 # source name -> {C entry point: argtypes}
 SOURCES = {
     # q, k, v, o, dtype, B, H, Tq, Tk, D, 9 strides, causal,
@@ -45,8 +45,11 @@ SOURCES = {
     "flash_attention": {"mxt_flash_attention_fwd": [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 9 + [
         _I, _I, _F, _P]},
-    # sup, init, keep, words, B, K, stream
-    "greedy_nms": {"mxt_greedy_nms": [_P, _P, _P, _P, _I, _I, _P]},
+    # boxes, ids (or null), words, B, K, thresh, form, box type, id type,
+    # stream; then words, init, keep, B, K, stream
+    "greedy_nms": {
+        "mxt_greedy_nms_words": [_P, _P, _P, _I, _I, _D, _I, _I, _I, _P],
+        "mxt_greedy_nms_scan": [_P, _P, _P, _I, _I, _P]},
 }
 
 _locks = {name: threading.Lock() for name in SOURCES}

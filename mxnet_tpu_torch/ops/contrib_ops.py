@@ -8,10 +8,11 @@ Detection: ``_contrib_MultiBoxPrior`` :32, ``_box_iou_xyxy`` :67 and
 :534 and ``_contrib_PSROIPooling`` :594.  Each keeps the reference's
 arithmetic and order of operations; its per-sample ``vmap`` is a batch
 dimension here, and its sorts are stable, as ``jnp.argsort`` is.  The
-three greedy NMS ``fori_loop`` scans (:253, :298, :515) build their
-suppression mask in torch ops and run the scan through
-:func:`nms_ops.greedy_nms`: the hand-written CUDA kernel on the card, its
-plain loop on the CPU.
+three greedy NMS ``fori_loop`` scans (:253, :298, :515) run through
+:func:`nms_ops.greedy_nms` from their score-sorted boxes: hand-written
+CUDA kernels on the card (the IoU and the scan), the plain torch-op mask
+and loop on the CPU.  ``_box_iou_xyxy`` is :func:`nms_ops.box_iou_xyxy`,
+so ``box_iou``, ``MultiBoxTarget`` and the NMS share its arithmetic.
 
 Dense: ``_contrib_count_sketch`` :658, ``_contrib_fft`` :675 and
 ``_contrib_ifft`` :688, the interleaved self-attention products :706-732
@@ -24,23 +25,17 @@ import math
 import numpy as np
 import torch
 
-from .nms_ops import greedy_nms
+from .nms_ops import _maximum, box_iou_xyxy as _box_iou_xyxy, greedy_nms
 from .registry import register
 from .tensor_ops import _index
 
-__all__ = ["greedy_nms", "nms_mask", "detection_candidates",
-           "proposal_candidates", "proposal_mask", "proposal_anchors"]
+__all__ = ["detection_candidates", "proposal_candidates",
+           "proposal_anchors"]
 
 
 # ---------------------------------------------------------------------------
 # SSD: MultiBoxPrior / MultiBoxTarget / MultiBoxDetection
 # ---------------------------------------------------------------------------
-
-def _maximum(x, v):
-    """``jnp.maximum(x, v)`` for a scalar ``v``: ties split the gradient
-    in half, as JAX's does (``clamp_min`` passes it whole)."""
-    return torch.maximum(x, x.new_full((), v))
-
 
 def div_const(x, c):
     """``x / c`` for a Python constant ``c`` as the JAX ops compute it:
@@ -76,22 +71,6 @@ def _multibox_prior(attrs, data):
     boxes = [torch.stack([cxg - hw, cyg - hh, cxg + hw, cyg + hh], dim=-1)
              for hw, hh in whs]
     return torch.stack(boxes, dim=2).reshape(1, -1, 4)
-
-
-def _box_iou_xyxy(a, b):
-    """IoU between (..., 4) corner boxes, broadcasting."""
-    ix1 = torch.maximum(a[..., 0], b[..., 0])
-    iy1 = torch.maximum(a[..., 1], b[..., 1])
-    ix2 = torch.minimum(a[..., 2], b[..., 2])
-    iy2 = torch.minimum(a[..., 3], b[..., 3])
-    iw = _maximum(ix2 - ix1, 0.0)
-    ih = _maximum(iy2 - iy1, 0.0)
-    inter = iw * ih
-    area_a = (_maximum(a[..., 2] - a[..., 0], 0.0)
-              * _maximum(a[..., 3] - a[..., 1], 0.0))
-    area_b = (_maximum(b[..., 2] - b[..., 0], 0.0)
-              * _maximum(b[..., 3] - b[..., 1], 0.0))
-    return inter / _maximum(area_a + area_b - inter, 1e-12)
 
 
 @register("_contrib_box_iou")
@@ -207,26 +186,6 @@ def _multibox_target(attrs, anchors, labels, cls_preds):
     return loc.reshape(N, -1), mask.reshape(N, -1), cls_t
 
 
-def nms_mask(boxes, ids, thresh, force=False):
-    """The suppression relation of score-sorted boxes (B, K, 4) with
-    class ids (B, K): ``sup[b, j, i] = iou(j, i) > thresh`` (and the same
-    id unless ``force``), the JAX ops' ``(iou > thresh) & same``.  Built
-    a few batch rows at a time (~8 GiB of K x K fp32 temporaries), with
-    the arithmetic of :func:`_box_iou_xyxy`."""
-    B, K = ids.shape
-    chunk = max(1, (8 << 30) // max(1, K * K * 4 * 10))
-    sup = torch.empty((B, K, K), dtype=torch.bool, device=boxes.device)
-    with torch.no_grad():
-        for lo in range(0, B, chunk):
-            bx = boxes[lo:lo + chunk]
-            s = _box_iou_xyxy(bx[:, :, None, :], bx[:, None, :, :]) > thresh
-            if not force:
-                idc = ids[lo:lo + chunk]
-                s &= idc[:, :, None] == idc[:, None, :]
-            sup[lo:lo + chunk] = s
-    return sup
-
-
 def detection_candidates(attrs, cls_prob, loc_pred, anchors):
     """MultiBoxDetection up to its NMS: the decoded boxes and the best
     non-background class and score of each anchor, in score order (stable)
@@ -265,7 +224,7 @@ def _multibox_detection(attrs, cls_prob, loc_pred, anchors):
     nms_thresh = float(attrs.get("nms_threshold", 0.5))
     boxes_s, score_s, cls_s, valid_s = detection_candidates(
         attrs, cls_prob, loc_pred, anchors)
-    keep = greedy_nms(nms_mask(boxes_s, cls_s, nms_thresh), valid_s)
+    keep = greedy_nms(boxes_s, cls_s, valid_s, nms_thresh)
     out_cls = torch.where(keep, cls_s, -1.0)
     return torch.cat([out_cls[..., None], score_s[..., None], boxes_s],
                      dim=-1)
@@ -288,10 +247,12 @@ def _box_nms(attrs, data):
     valid = score > valid_thresh
     order = torch.argsort(-score, dim=1, stable=True)
     s = _take_rows(flat, order)
-    keep = greedy_nms(
-        nms_mask(s[..., coord_start:coord_start + 4], s[..., id_index],
-                 thresh, force=force),
-        torch.gather(valid, 1, order))
+    boxes = s[..., coord_start:coord_start + 4]
+    if not boxes.is_floating_point():   # the JAX op's IoU promotes them
+        boxes = boxes.float()
+    keep = greedy_nms(boxes.contiguous(),
+                      None if force else s[..., id_index].contiguous(),
+                      torch.gather(valid, 1, order), thresh)
     compact = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
     out = torch.where(torch.gather(keep, 1, compact)[..., None],
                       _take_rows(s, compact), -1.0)
@@ -473,25 +434,6 @@ def proposal_candidates(attrs, cls_prob, bbox_pred, im_info):
     return boxes, torch.gather(score, 1, order)
 
 
-def proposal_mask(boxes, thresh):
-    """Proposal's suppression relation over its K1 candidates (B, K1, 4):
-    ``sup[b, j, i] = iou(j, i) > thresh`` with the +1-pixel IoU of the
-    JAX op's NMS body (its row for j), so ``supp | kill`` is the scan of
-    :func:`greedy_nms` from an all-true ``init``."""
-    with torch.no_grad():
-        area = ((boxes[..., 2] - boxes[..., 0] + 1.0)
-                * (boxes[..., 3] - boxes[..., 1] + 1.0))
-        a, b = boxes[:, :, None, :], boxes[:, None, :, :]
-        ix1 = torch.maximum(a[..., 0], b[..., 0])
-        iy1 = torch.maximum(a[..., 1], b[..., 1])
-        ix2 = torch.minimum(a[..., 2], b[..., 2])
-        iy2 = torch.minimum(a[..., 3], b[..., 3])
-        inter = (_maximum(ix2 - ix1 + 1.0, 0.0)
-                 * _maximum(iy2 - iy1 + 1.0, 0.0))
-        iou = inter / (area[:, :, None] + area[:, None, :] - inter)
-        return iou > thresh
-
-
 def _proposal_num_outputs(attrs):
     return 2 if attrs.get("output_score") else 1
 
@@ -511,7 +453,7 @@ def _proposal(attrs, cls_prob, bbox_pred, im_info):
                                             im_info)
         init = torch.ones(kscore.shape, dtype=torch.bool,
                           device=boxes.device)
-        kept = greedy_nms(proposal_mask(boxes, thresh), init)
+        kept = greedy_nms(boxes, None, init, thresh, form="proposal")
         out, scores = proposal_select(attrs, boxes, kscore, kept)
     if attrs.get("output_score"):
         return out, scores

@@ -272,25 +272,80 @@ def _numpy_nms(sup, init):
     return keep
 
 
-@pytest.mark.parametrize("B,K,density", [(3, 70, 0.05), (2, 130, 0.3),
-                                         (1, 1, 0.5)])
-def test_greedy_nms_plain_version_matches_a_numpy_loop(B, K, density):
+def _numpy_sup(boxes, ids, thresh, form):
+    """The suppression mask in numpy float32, one IEEE operation at a time:
+    the JAX package's ``_box_iou_xyxy`` (corner) or Proposal's +1-pixel
+    IoU, against float32(thresh)."""
+    a, b = boxes[:, :, None, :], boxes[:, None, :, :]
+    one = np.float32(1) if form == "proposal" else np.float32(0)
+    iw = np.maximum(np.minimum(a[..., 2], b[..., 2])
+                    - np.maximum(a[..., 0], b[..., 0]) + one, np.float32(0))
+    ih = np.maximum(np.minimum(a[..., 3], b[..., 3])
+                    - np.maximum(a[..., 1], b[..., 1]) + one, np.float32(0))
+    inter = iw * ih
+    if form == "proposal":
+        area = ((boxes[..., 2] - boxes[..., 0] + one)
+                * (boxes[..., 3] - boxes[..., 1] + one))
+        union = area[:, :, None] + area[:, None, :] - inter
+    else:
+        area = (np.maximum(boxes[..., 2] - boxes[..., 0], np.float32(0))
+                * np.maximum(boxes[..., 3] - boxes[..., 1], np.float32(0)))
+        union = np.maximum(area[:, :, None] + area[:, None, :] - inter,
+                           np.float32(1e-12))
+    with np.errstate(all="ignore"):
+        sup = inter / union > np.float32(thresh)
+    if ids is not None:
+        sup &= ids[:, :, None] == ids[:, None, :]
+    return sup
+
+
+@pytest.mark.parametrize("B,K,thresh", [(3, 70, 0.05), (2, 130, 0.3),
+                                        (1, 1, 0.5)])
+def test_greedy_nms_plain_version_matches_a_numpy_loop(B, K, thresh):
+    """Boxes on a quarter-pixel grid (many IoUs exactly at a threshold),
+    both forms, the corner one with ids and without, against a numpy mask
+    and loop."""
     rng = np.random.RandomState(K)
-    sup = rng.uniform(size=(B, K, K)) < density
+    lo = rng.randint(0, 24, (B, K, 2)) / 4
+    boxes = np.concatenate([lo, lo + rng.randint(0, 16, (B, K, 2)) / 4],
+                           axis=2).astype(np.float32)
+    ids = rng.randint(0, 3, (B, K)).astype(np.float32)
     init = rng.uniform(size=(B, K)) < 0.8
-    got = nms_ops.greedy_nms(torch.from_numpy(sup), torch.from_numpy(init))
-    np.testing.assert_array_equal(got.numpy(), _numpy_nms(sup, init))
+    for form, with_ids in (("corner", True), ("corner", False),
+                           ("proposal", False)):
+        got = nms_ops.greedy_nms(
+            torch.from_numpy(boxes),
+            torch.from_numpy(ids) if with_ids else None,
+            torch.from_numpy(init), thresh, form=form)
+        want = _numpy_nms(_numpy_sup(boxes, ids if with_ids else None,
+                                     thresh, form), init)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=form)
     assert nms_ops.greedy_nms.launches == 0   # the CPU runs no kernel
 
 
 def test_greedy_nms_checks_its_inputs():
-    sup = torch.zeros((2, 4, 4), dtype=torch.bool)
+    boxes = torch.zeros((2, 4, 4))
+    ids = torch.zeros((2, 4))
     init = torch.ones((2, 4), dtype=torch.bool)
-    with pytest.raises(ValueError, match=r"\(B, K, K\)"):
-        nms_ops.greedy_nms(sup[:, :3], init)
+    with pytest.raises(ValueError, match=r"\(B, K, 4\)"):
+        nms_ops.greedy_nms(boxes[:, :3], ids, init, 0.5)
     with pytest.raises(TypeError, match="bool"):
-        nms_ops.greedy_nms(sup.float(), init)
-    meta = nms_ops.greedy_nms(sup.to("meta"), init.to("meta"))
+        nms_ops.greedy_nms(boxes, ids, init.float(), 0.5)
+    with pytest.raises(ValueError, match="form"):
+        nms_ops.greedy_nms(boxes, ids, init, 0.5, form="center")
+    with pytest.raises(ValueError, match="ids"):
+        nms_ops.greedy_nms(boxes, ids[:, :3], init, 0.5)
+    with pytest.raises(ValueError, match="no ids"):
+        nms_ops.greedy_nms(boxes, ids, init, 0.5, form="proposal")
+    with pytest.raises(TypeError, match="real ids"):
+        nms_ops.greedy_nms(boxes, ids.bool(), init, 0.5)
+    K = nms_ops.MAX_K + 1
+    with pytest.raises(ValueError, match="K <= %d" % nms_ops.MAX_K):
+        nms_ops.greedy_nms(torch.zeros((1, K, 4)), None,
+                           torch.ones((1, K), dtype=torch.bool), 0.5,
+                           form="proposal")
+    meta = nms_ops.greedy_nms(boxes.to("meta"), ids.to("meta"),
+                              init.to("meta"), 0.5)
     assert meta.shape == (2, 4) and meta.device.type == "meta"
 
 
